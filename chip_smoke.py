@@ -6,9 +6,9 @@
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. the card's name and power limit; build the fused-step kernel
-   ``mpi4jax_tpu_torch/csrc/sw_step.cu`` with nvcc (build time, ptxas
-   lines);
+1. the card's name and power limit; build the three kernels of
+   ``mpi4jax_tpu_torch/csrc/`` with nvcc, one process each, all started
+   together, and print the fused step's build time and ptxas lines;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
    the Euler step from a check state (the initial jet with seeded
    grid-scale noise), and fuse=1 and fuse=3 from that state after two plain
@@ -24,12 +24,37 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    must stay near the plain path's, which is timed too (as the cost of the
    test oracle, not as a yardstick);
 5. the kernel's time per launch (CUDA events) at fuse=3 and fuse=1, beside
-   its memory bound and the plain version's time.
+   its memory bound and the plain version's time;
+6. the build of the hop and fused-ring kernels (``csrc/hop.cu``,
+   ``csrc/fused_ring.cu``): build time and ptxas lines;
+7. the hop kernel against ``hop_plain`` on the card, bit for bit:
+   ``ring_shift`` at +1 and -1, ``ring_shift2``, the XOR exchange and a
+   permutation that leaves ranks without a source (zero fill), at n = 2, 4
+   and 8 and on the axes of a 2x4 grid, in f32, f64, int32, bf16,
+   complex64 and uint8, at byte counts that are odd and not multiples of
+   16; its time per launch on the halo's y and x strips of path (a),
+   beside its bound, its plain version and ``torch.roll``;
+8. the fused ring against ``fused_ring_allreduce_plain`` on the card, bit
+   for bit, at n = 3, 4 and 8 and 1, 513, 16Ki, 16Ki+37 and 4Mi+3 elements
+   per rank (f32), and in the other dtypes it takes; every output row
+   identical; its time at n = 4 and 16 MiB per rank beside its bound, its
+   plain version and ``x.sum(0)``;
+9. path (b): the allreduce sweep (``mpi4jax_tpu_torch.benchmarks.
+   allreduce_sweep``) through ``ops.allreduce`` at n = 4 and 8 from 1 KiB
+   to 64 MiB per rank, the launch counters reset just before and read just
+   after; each size bit for bit against the same call on the plain route,
+   the fused ring taken from 16Ki elements per rank up;
+10. path (a): the shallow-water solver on a 2x2 grid at 1800x3600 for 0.1
+   model day (init, the Euler step and 431 timed steps) through the hop
+   kernel, the counters reset just before and read just after; h finite,
+   mass to 1e-5, bit for bit the same run on the plain hop, and within
+   ``GRID_TOL`` of the 1x1 run of phase 4; the share of a step that the
+   halo exchanges take (CUDA events).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
-no result.  ``--rehearse`` runs phases 2-4 on the CPU through the plain
-path at a small size and prints no result line.
+no result.  ``--rehearse`` runs phases 2-4 and 7-10 on the CPU through the
+plain versions at a small size and prints no result line.
 """
 
 from __future__ import annotations
@@ -43,10 +68,15 @@ import time
 
 import torch
 
-from mpi4jax_tpu_torch import _build
+from mpi4jax_tpu_torch import _build, ops
+from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
 from mpi4jax_tpu_torch.models import shallow_water as sw
+from mpi4jax_tpu_torch.ops import _collectives as coll
+from mpi4jax_tpu_torch.ops import _mesh_impl
+from mpi4jax_tpu_torch.parallel.grid import ProcessGrid
+from mpi4jax_tpu_torch.parallel.mesh import make_mesh
 
 SHAPE = (1800, 3600)
 EDGE_SHAPES = [(16, 32), (22, 32), (70, 50)]
@@ -57,6 +87,19 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # fluxes/q/ke 30, tendencies and Adams-Bashforth 48, viscous fluxes 12,
 # viscous update 14
 FLOPS_PER_CELL_STEP = 104
+KERNELS = ("sw_step", "hop", "fused_ring")
+HOP_DTYPES = (torch.float32, torch.float64, torch.int32, torch.bfloat16,
+              torch.complex64, torch.uint8)
+HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
+RING_COUNTS = (1, 513, 16 * 1024, 16 * 1024 + 37, 4 * 1024 * 1024 + 3)
+RING_DTYPES = (torch.float64, torch.float16, torch.bfloat16, torch.int32,
+               torch.int64, torch.uint8, torch.complex64)
+SWEEP_MAX_BYTES = 64 * 1024 * 1024
+GRID = (2, 2)
+# tolerance of the 2x2 run's h against the 1x1 run's after 0.1 day (see
+# phase 10): the two inits associate the prefix integral and the mean
+# differently, and the 1x1 run goes through the fused-step kernel
+GRID_TOL = 1e-2
 
 
 def log(msg=""):
@@ -112,6 +155,312 @@ def compare(got, ref, before, what):
     return worst_abs, worst_rel
 
 
+def log_build(name, build_secs):
+    log(f"  csrc/{name}.cu: {build_secs[name]:.2f} s")
+    for line in _build.LOGS.get(name, "").splitlines():
+        if "ptxas" in line or "error" in line or "warning" in line:
+            log(f"  {name}: {line.strip()}")
+
+
+def reset_counts():
+    kernel.LAUNCHES = 0
+    for k in coll.LAUNCHES:
+        coll.LAUNCHES[k] = 0
+
+
+def bits_equal(a, b):
+    a = a.detach().contiguous().reshape(-1)
+    b = b.detach().contiguous().reshape(-1)
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+def abs_diff(a, b):
+    if a.dtype == torch.bool:
+        return float((a != b).any())
+    a, b = torch.view_as_real(a) if a.is_complex() else a, \
+        torch.view_as_real(b) if b.is_complex() else b
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
+def random_tensor(shape, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype.is_complex:
+        x = torch.randn(shape, generator=g, dtype=dtype)
+    elif dtype.is_floating_point:
+        x = torch.randn(shape, generator=g).to(dtype)
+    elif dtype == torch.uint8:
+        x = torch.randint(0, 256, shape, generator=g, dtype=dtype)
+    else:
+        x = torch.randint(-2**20, 2**20, shape, generator=g, dtype=dtype)
+    return x.to(dev)
+
+
+def same_as_plain(what, fn, *args):
+    """``fn(*args)`` against the same call on the plain route, bit for
+    bit; returns the result and the number of tensors compared."""
+    got = fn(*args)
+    with coll.use_plain():
+        ref = fn(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        if not bits_equal(g, r):
+            fail(f"{what}: differs from the plain version by "
+                 f"{abs_diff(g, r):.3e}")
+    return got
+
+
+def check_hop(dev):
+    """Phase 7: the hop kernel against hop_plain, bit for bit."""
+    cases = 0
+    seed = 0
+    for n in (2, 4, 8):
+        comm = make_mesh(n, device=dev)
+        grid_comms = []
+        if n == 8:
+            grid = ProcessGrid((2, 4), device=dev)
+            grid_comms = [grid.axis_comm(0), grid.axis_comm(1)]
+        for dtype in HOP_DTYPES:
+            for local in HOP_LOCALS:
+                seed += 1
+                x = random_tensor((n,) + local, dtype, dev, seed)
+                y = random_tensor((n,) + local, dtype, dev, seed + 1000)
+                tag = f"n={n} {dtype} local {local}"
+                same_as_plain(f"ring_shift +1 {tag}", coll.ring_shift, x,
+                              comm, 1)
+                same_as_plain(f"ring_shift -1 {tag}", coll.ring_shift, x,
+                              comm, -1)
+                same_as_plain(f"ring_shift2 {tag}", coll.ring_shift2, x, y,
+                              comm)
+                k = 1
+                while k < n:
+                    same_as_plain(f"xor {k} {tag}", coll.exchange, x, comm,
+                                  [c ^ k for c in range(n)])
+                    k *= 2
+                perm = [(i, i + 1) for i in range(n - 1)]
+                (got,) = same_as_plain(f"open chain {tag}",
+                                       _mesh_impl.sendrecv, x, perm, comm)
+                if not bits_equal(got[0], torch.zeros_like(got[0])):
+                    fail(f"open chain {tag}: rank 0 has no source but is "
+                         "not zero")
+                cases += 5 + (n.bit_length() - 1)
+                for sub in grid_comms:
+                    g2 = x.reshape((2, 4) + local)
+                    h2 = y.reshape((2, 4) + local)
+                    same_as_plain(f"ring_shift2 on {sub} {tag}",
+                                  coll.ring_shift2, g2, h2, sub)
+                    cases += 1
+    sync(dev)
+    log(f"  {cases} hop calls equal their plain versions bit for bit")
+    return cases
+
+
+def check_ring(dev):
+    """Phase 8: the fused ring against its plain version, bit for bit."""
+    cases = 0
+    seed = 100
+    for n in (3, 4, 8):
+        for count in RING_COUNTS:
+            seed += 1
+            rows = random_tensor((n, count), torch.float32, dev, seed)
+            got = coll.fused_ring_kernel(rows) if dev.type == "cuda" \
+                else coll.fused_ring_allreduce_plain(rows)
+            ref = coll.fused_ring_allreduce_plain(rows)
+            if not bits_equal(got, ref):
+                fail(f"fused ring n={n} count={count}: differs from the "
+                     f"plain version by {abs_diff(got, ref):.3e}")
+            if not bits_equal(got, got[:1].expand_as(got)):
+                fail(f"fused ring n={n} count={count}: rows differ")
+            cases += 1
+    comm = make_mesh(4, device=dev)
+    for dtype in RING_DTYPES:
+        seed += 1
+        x = random_tensor((4, 16 * 1024 + 37), dtype, dev, seed)
+        same_as_plain(f"fused ring {dtype}", coll.fused_ring_allreduce_sum,
+                      x, comm)
+        cases += 1
+    sync(dev)
+    log(f"  {cases} fused-ring calls equal their plain versions bit for "
+        "bit, every row identical")
+    return cases
+
+
+def time_hop(dev, model):
+    """The hop's time per launch on path (a)'s halo strips: the y strips
+    (4 fields of nxl+2) and the x strips (4 fields of nyl+2), each moved by
+    one ring_shift2 on its grid axis."""
+    grid = model.grid
+    gy, gx = grid.shape
+    nyp, nxp = model.block_shape
+    rows = {}
+    for name, gdim, strip in (("y", 0, (4, 1, nxp)), ("x", 1, (4, nyp, 1))):
+        a = random_tensor((gy, gx) + strip, torch.float32, dev, 7)
+        b = random_tensor((gy, gx) + strip, torch.float32, dev, 8)
+        comm = grid.axis_comm(gdim)
+        ms = time_ms(lambda: coll.ring_shift2(a, b, comm), 200)
+        with coll.use_plain():
+            plain_ms = time_ms(lambda: coll.ring_shift2(a, b, comm), 200)
+        lib_ms = time_ms(lambda: (torch.roll(a, 1, dims=gdim),
+                                  torch.roll(b, -1, dims=gdim)), 200)
+        nbytes = 2 * (a.numel() + b.numel()) * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, payload_bytes=nbytes // 2)
+        log(f"  hop, {name} strips ({nbytes // 2} B per launch): "
+            f"{ms * 1e3:.2f} us/launch, bound {bound * 1e3:.4f} us (bytes), "
+            f"plain {plain_ms * 1e3:.2f} us, torch.roll pair "
+            f"{lib_ms * 1e3:.2f} us")
+    return rows
+
+
+def time_ring(dev, n=4, count=4 * 1024 * 1024):
+    """The fused ring's time at n ranks and count f32 per rank."""
+    x = random_tensor((n, count), torch.float32, dev, 11)
+    ms = time_ms(lambda: coll.fused_ring_kernel(x), 20)
+    plain_ms = time_ms(lambda: coll.fused_ring_allreduce_plain(x), 5)
+    lib_ms = time_ms(lambda: x.sum(0), 20)
+    bound = 2 * n * count * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"  fused ring, n={n}, {count * 4} B per rank: {ms:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes), {bound / ms:.3f} of it; plain "
+        f"{plain_ms:.4f} ms; x.sum(0) {lib_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound)
+
+
+def path_b(dev, max_bytes, on_card, card):
+    """Phase 9: the sweep at n = 4 and 8, then each size against the plain
+    route."""
+    reset_counts()
+    recs = []
+    for n in (4, 8):
+        recs += allreduce_sweep.sweep(n, 1024, max_bytes, device=dev,
+                                      reps=10 if on_card else 1,
+                                      warmup=3 if on_card else 1)
+    launches = dict(coll.LAUNCHES)
+    if on_card and launches["fused_ring"] == 0:
+        fail("path (b) launched no fused ring")
+    for r in recs:
+        n, nbytes = r["ranks"], r["bytes"]
+        comm = make_mesh(n, device=dev)
+        x = allreduce_sweep.make_input(n, nbytes, 0, dev)
+        same_as_plain(f"allreduce n={n} {nbytes} B", lambda v: ops.allreduce(
+            v, op=ops.SUM, comm=comm), x)
+        if nbytes // 4 >= coll.BIDIR_MIN_ELEMS and r["arm"] != "fused_ring":
+            fail(f"allreduce n={n} {nbytes} B took {r['arm']}")
+        r["bound_us"] = 2 * n * nbytes / HBM_BYTES_PER_S * 1e6
+        r["sum0_us"] = allreduce_sweep.time_call(
+            lambda: x.sum(0), dev, 3 if on_card else 1,
+            10 if on_card else 1) * 1e6
+        log(f"  n={n} {nbytes:>9} B: {r['us']:10.2f} us {r['arm']:<10} "
+            f"{r['eff_GBps_per_chip']:9.3f} GB/s eff, bound "
+            f"{r['bound_us']:9.3f} us, x.sum(0) {r['sum0_us']:9.2f} us; "
+            "equals plain")
+        del x
+    log(f"  launches in the sweep: {launches} [{card}]")
+    return recs, launches
+
+
+def halo_share(model, state, steps=5):
+    """CUDA-event time of the halo exchanges within ``steps`` steps, over
+    the steps' time."""
+    orig = model._exchange
+    spans = []
+
+    def timed(fields, kinds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(fields, kinds)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    model._exchange = timed
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s = state
+        start.record()
+        for _ in range(steps):
+            s = model._step_local(s, False)
+        end.record()
+        end.synchronize()
+    finally:
+        del model._exchange
+    halo = sum(a.elapsed_time(b) for a, b in spans)
+    return halo / steps, start.elapsed_time(end) / steps, len(spans) // steps
+
+
+def path_a(shape, dev, ref_1x1, on_card, reps):
+    """Phase 10: the 2x2 solver for 0.1 day through the hop kernel."""
+    model = sw.ShallowWater(shape, grid=GRID, device=dev)
+    n_steps = int(DAYS * model.params.day_seconds / model.params.dt)
+    first = model.step_fn(1, first=True)
+    run = model.step_fn(n_steps - 1)
+    model.step_fn(2, first=True)(model.init())  # warm-up
+    sync(dev)
+
+    reset_counts()
+    s0 = model.init()
+    state1 = first(s0)
+    sync(dev)
+    before = coll.LAUNCHES["hop"]
+    t0 = time.perf_counter()
+    state = run(state1)
+    sync(dev)
+    times = [time.perf_counter() - t0]
+    launches = dict(coll.LAUNCHES)
+    timed_hops = launches["hop"] - before
+    if on_card and launches["hop"] == 0:
+        fail("path (a) launched no hop kernel")
+    for _ in range(reps - 1):
+        t0 = time.perf_counter()
+        state = run(state1)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+
+    if not bool(torch.isfinite(state.h).all()):
+        fail("path (a): h is not finite")
+    h = model.interior(state.h)
+    if h.shape != tuple(shape):
+        fail(f"path (a): h has shape {h.shape}")
+    m0, m1 = model.total_mass(s0), model.total_mass(state)
+    drift = abs(m1 - m0) / abs(m0)
+    if not drift < 1e-5:
+        fail(f"path (a): mass drifted by {drift:.3e}")
+
+    t0 = time.perf_counter()
+    twin = model.step_fn(n_steps - 1, impl="plain")(
+        model.step_fn(1, first=True, impl="plain")(s0))
+    sync(dev)
+    twin_secs = time.perf_counter() - t0
+    for name, a, b in zip(sw.SWState._fields, state, twin):
+        if not bits_equal(a, b):
+            fail(f"path (a): field {name} differs from the plain-hop run "
+                 f"by {abs_diff(a, b):.3e}")
+    d1 = float(abs(h - ref_1x1).max())
+    if not d1 < GRID_TOL:
+        fail(f"path (a): h differs from the 1x1 run by {d1:.3e}")
+    secs = statistics.median(times)
+    timed = n_steps - 1
+    log(f"  {GRID[0]}x{GRID[1]} grid at {tuple(shape)}: {timed} timed steps "
+        f"in {secs:.4f} s median of {len(times)} "
+        f"({[round(t, 4) for t in times]}), {secs / timed * 1e3:.4f} ms/step; "
+        f"launches {launches} ({timed_hops / timed:.2f} hops per timed "
+        f"step); mass drift {drift:.2e}; h in [{h.min():.3f}, {h.max():.3f}]")
+    log(f"  equals the plain-hop run bit for bit (that run: {twin_secs:.4f} s);"
+        f" max |h - h_1x1| = {d1:.3e} (tolerance {GRID_TOL})")
+    share = None
+    if on_card:
+        halo_ms, step_ms, calls = halo_share(model, state)
+        share = halo_ms / step_ms
+        log(f"  halo: {halo_ms:.4f} ms of {step_ms:.4f} ms per step "
+            f"({share:.3f}), {calls} exchanges per step")
+    return dict(model=model, secs=secs, launches=launches,
+                hops_per_step=timed_hops / timed, d1x1=d1, drift=drift,
+                halo_share=share, twin_secs=twin_secs, times=times)
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -141,7 +490,7 @@ def main_path(shape, dev, fuse, reps, on_card):
     run(first(s0))  # warm-up
     sync(dev)
 
-    kernel.LAUNCHES = 0
+    reset_counts()
     state1 = first(s0)
     t0 = time.perf_counter()
     state = run(state1)
@@ -178,8 +527,8 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4 on the CPU, plain path, small size; "
-                         "prints no result line")
+                    help="phases 2-4 and 7-10 on the CPU, plain versions, "
+                         "small size; prints no result line")
     args = ap.parse_args(argv)
 
     on_card = not args.rehearse
@@ -195,15 +544,15 @@ def main(argv=None):
         kind = torch.cuda.get_device_name(0)
         log(f"card: {card}")
         t0 = time.perf_counter()
-        _build.library("sw_step")
-        log(f"build: csrc/sw_step.cu in {time.perf_counter() - t0:.2f} s")
-        for line in _build.LOGS.get("sw_step", "").splitlines():
-            if "ptxas" in line or "error" in line or "warning" in line:
-                log(f"  sw_step: {line.strip()}")
+        build_secs = _build.build_all(KERNELS)
+        log(f"build: {len(KERNELS)} kernels in parallel in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log_build("sw_step", build_secs)
     else:
         dev = torch.device("cpu")
         shape, reps = (64, 128), 1
         card = kind = "cpu (rehearsal)"
+        build_secs = {}
 
     log(f"phase 2: kernel vs plain at {shape}")
     max_abs, max_rel = check_kernel(shape, dev, (1, 3))
@@ -231,10 +580,75 @@ def main(argv=None):
     if not dh < 1e-2:
         fail(f"kernel and plain paths differ by {dh:.3e} in h after {DAYS} day")
 
+    h_1x1 = model.interior(state3.h)
+
+    if on_card:
+        sw_row = phase5(shape, state1, model, card, launches, max_abs,
+                        max_rel, secs3, secs1, plain_secs)
+        log("phase 6: build of the hop and fused-ring kernels")
+        for name in ("hop", "fused_ring"):
+            log_build(name, build_secs)
+
+    log(f"phase 7: hop kernel vs hop_plain [{card}]")
+    check_hop(dev)
+    log(f"phase 8: fused ring vs fused_ring_allreduce_plain [{card}]")
+    check_ring(dev)
+    ring_t = time_ring(dev) if on_card else None
+
+    max_bytes = SWEEP_MAX_BYTES if on_card else 1024 * 1024
+    log(f"phase 9: path (b), the allreduce sweep to {max_bytes} B per rank "
+        f"[{card}]")
+    recs, b_launches = path_b(dev, max_bytes, on_card, card)
+
+    log(f"phase 10: path (a), the {GRID[0]}x{GRID[1]} solver, {DAYS} day at "
+        f"{shape} [{card}]")
+    a = path_a(shape, dev, h_1x1, on_card, reps)
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
+    hop_t = time_hop(dev, a["model"])
 
+    hop_row = {
+        "name": "hop", "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/hop.cu",
+        "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:74",
+        "launches": a["launches"]["hop"], "max_abs_err": 0.0,
+        "ok": True, "ms": hop_t["y"]["ms"], "plain_ms": hop_t["y"]["plain_ms"],
+        "bound_ms": hop_t["y"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": hop_t["y"]["library_ms"],
+        "library": "torch.roll pair (no single call shifts two ways)",
+        "at": "ring_shift2 of the y strips of path (a)",
+        "payload_bytes": hop_t["y"]["payload_bytes"],
+        "x_strips": hop_t["x"], "hops_per_step": a["hops_per_step"],
+        "launches_path_b": b_launches["hop"],
+        "day_seconds_2x2": a["secs"], "halo_share": a["halo_share"],
+        "h_vs_1x1": a["d1x1"], "card": card,
+    }
+    ring_row = {
+        "name": "fused_ring", "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/fused_ring.cu",
+        "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:660",
+        "launches": b_launches["fused_ring"], "max_abs_err": 0.0,
+        "ok": True, "ms": ring_t["ms"], "plain_ms": ring_t["plain_ms"],
+        "bound_ms": ring_t["bound_ms"], "bound_by": "bytes",
+        "library_ms": ring_t["library_ms"], "library": "x.sum(0)",
+        "at": "n=4, 16 MiB per rank",
+        "sweep": [{k: r[k] for k in ("ranks", "bytes", "us", "arm",
+                                     "eff_GBps_per_chip", "bound_us",
+                                     "sum0_us")} for r in recs],
+        "card": card,
+    }
+    log(f"card: {card}")
+    print(json.dumps({"kernels": [sw_row, hop_row, ring_row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phase5(shape, state1, model, card, launches, max_abs, max_rel, secs3,
+           secs1, plain_secs):
+    """Phase 5: the fused step's time per launch; returns its kernels row."""
     log(f"phase 5: kernel time per launch at {shape} [{card}]")
     s = state1
     bufs = [sw.SWState(*(torch.empty_like(f) for f in s)) for _ in range(2)]
@@ -281,12 +695,7 @@ def main(argv=None):
         "day_seconds_fuse3": secs3, "day_seconds_fuse1": secs1,
         "plain_day_seconds": plain_secs, "card": card,
     }
-    log(f"card: {card}")
-    print(json.dumps({"kernels": [row]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return row
 
 
 if __name__ == "__main__":

@@ -5,14 +5,53 @@ JAX): plain tensor code is PyTorch, and every Pallas kernel of the JAX
 package becomes a kernel written by hand for Hopper (``csrc/``), built
 with ``nvcc`` at first use (``_build.py``).
 
-Ported so far: the single-block shallow-water solver
-(``models/shallow_water.py``) and its fused-step kernel
-(``models/_sw_kernel.py`` around ``csrc/sw_step.cu``).  Entry points run
-on the card (``cuda:0``) unless the caller passes ``device="cpu"``.
+Ported so far:
+
+- the mesh tier on one card: ``MeshComm``, ``make_mesh``, ``spmd``,
+  ``ProcessGrid``, ``halo_exchange`` and the ops ``allreduce``,
+  ``allgather``, ``sendrecv`` and ``scan``, whose communication runs on the
+  hop kernel (``csrc/hop.cu``) and the fused ring allreduce
+  (``csrc/fused_ring.cu``) through ``ops/_collectives.py``.  Every rank
+  lives on the one device; the rank axes are leading tensor dimensions;
+- the shallow-water solver (``models/shallow_water.py``) on any 2-D grid,
+  and its fused single-block step kernel (``csrc/sw_step.cu``).
+
+Entry points run on the card (``cuda:0``) unless the caller passes
+``device="cpu"``.
 """
 
 from .models.shallow_water import ShallowWater, SWParams, SWState
+from .ops import (
+    ALL_OPS,
+    BAND,
+    BOR,
+    BXOR,
+    LAND,
+    LOR,
+    LXOR,
+    MAX,
+    MIN,
+    PROD,
+    SUM,
+    ReduceOp,
+    allgather,
+    allreduce,
+    custom_op,
+    scan,
+    sendrecv,
+)
+from .parallel.grid import ProcessGrid
+from .parallel.halo import halo_exchange
+from .parallel.mesh import MeshComm, get_default_comm, make_mesh, spmd
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["ShallowWater", "SWParams", "SWState", "__version__"]
+__all__ = [
+    "ShallowWater", "SWParams", "SWState",
+    "MeshComm", "make_mesh", "spmd", "get_default_comm",
+    "ProcessGrid", "halo_exchange",
+    "allreduce", "allgather", "sendrecv", "scan",
+    "ReduceOp", "custom_op", "ALL_OPS",
+    "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR",
+    "__version__",
+]

@@ -14,6 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -64,6 +66,20 @@ def library(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def build_all(names) -> dict:
+    """Build (or load) several libraries at once, one ``nvcc`` each, all
+    started together; returns each one's seconds until it was loaded."""
+
+    def one(name):
+        t0 = time.perf_counter()
+        library(name)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:

@@ -1,13 +1,17 @@
 """Shallow-water demo / benchmark CLI of the PyTorch port.
 
-The counterpart of ``examples/shallow_water.py``, on one block (1x1 grid)
-and, by default, on the card:
+The counterpart of ``examples/shallow_water.py``, by default on the card:
 
     # demo run
     python -m mpi4jax_tpu_torch.examples.shallow_water
 
     # benchmark: 1800x3600, 0.1 model days (the reference's headline config)
     python -m mpi4jax_tpu_torch.examples.shallow_water --benchmark --json
+
+    # the same decomposed over a 2x2 process grid on the one card: the
+    # plain step with its halo exchanges on the hop kernel
+    python -m mpi4jax_tpu_torch.examples.shallow_water --benchmark \
+        --grid 2 2 --json
 
     # on the CPU, through the plain step
     python -m mpi4jax_tpu_torch.examples.shallow_water --device cpu \\
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.shallow_water import ShallowWater, SWParams
+from ..ops import _collectives
 
 
 def parse_args(argv=None):
@@ -43,7 +48,9 @@ def parse_args(argv=None):
     p.add_argument("--multistep", type=int, default=25,
                    help="steps per call of the stepper")
     p.add_argument("--fuse", type=int, default=3,
-                   help="steps per kernel launch")
+                   help="steps per kernel launch (1x1 grid)")
+    p.add_argument("--grid", type=int, nargs=2, default=(1, 1),
+                   metavar=("GY", "GX"), help="process grid (default 1 1)")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line with the timing result")
     p.add_argument("--device", default="cuda",
@@ -66,7 +73,8 @@ def main(argv=None):
     days = args.days if args.days is not None else (0.1 if args.benchmark else 10.0)
 
     params = SWParams(dx=5e3, dy=5e3)
-    model = ShallowWater((ny, nx), params, device=args.device)
+    grid = tuple(args.grid)
+    model = ShallowWater((ny, nx), params, grid=grid, device=args.device)
     device = model.device
     n_steps = max(2, int(days * params.day_seconds / params.dt))
     multistep = max(1, min(args.multistep, n_steps - 1))
@@ -75,7 +83,7 @@ def main(argv=None):
             else "cpu")
 
     print(
-        f"shallow_water: domain ({ny}, {nx}), grid (1, 1), device {device} "
+        f"shallow_water: domain ({ny}, {nx}), grid {grid}, device {device} "
         f"[{kind}], dt={params.dt:.2f}s, {n_steps} steps ({days} model days)"
     )
 
@@ -87,6 +95,7 @@ def main(argv=None):
     step(state)  # warm-up: builds the kernel
     _sync(device)
 
+    hops, exchanges = _collectives.LAUNCHES["hop"], model.exchanges
     t0 = time.perf_counter()
     for _ in range(whole):
         state = step(state)
@@ -94,6 +103,8 @@ def main(argv=None):
     _sync(device)
     elapsed = time.perf_counter() - t0
     done = n_steps - 1
+    hops = _collectives.LAUNCHES["hop"] - hops
+    exchanges = model.exchanges - exchanges
 
     h = model.interior(state.h)
     if not np.all(np.isfinite(h)):
@@ -102,10 +113,11 @@ def main(argv=None):
           f"h range [{h.min():.2f}, {h.max():.2f}])")
 
     result = {
-        "domain": [ny, nx], "grid": [1, 1], "device": kind,
+        "domain": [ny, nx], "grid": list(grid), "device": kind,
         "fuse": args.fuse, "steps": done, "seconds": elapsed,
         "ms_per_step": elapsed / done * 1e3,
         "steps_per_s": done / elapsed,
+        "hop_launches": hops, "halo_exchanges_per_step": exchanges / done,
     }
     if args.json:
         print(json.dumps(result))

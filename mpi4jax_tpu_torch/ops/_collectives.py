@@ -1,0 +1,580 @@
+"""The mesh tier's collectives on the hop and fused-ring CUDA kernels.
+
+The counterpart of ``mpi4jax_tpu/ops/pallas_collectives.py``.  Two kernels
+carry every function here:
+
+- ``hop`` (``csrc/hop.cu``): k payloads, each rank's block of payload i
+  copied to rank ``dst[r][i]``, in one launch.  ``ring_shift``,
+  ``ring_shift2`` (the halo), ``exchange`` (the butterfly), the hop-composed
+  ``all_gather`` and ``reduce_scatter_sum`` are built from it, as on the TPU;
+- ``fused_ring_allreduce_sum`` (``csrc/fused_ring.cu``): the whole ring
+  allreduce in one launch, bit for bit ``topo.simulate_ring_sum``.
+
+``allreduce_sum`` keeps the JAX dispatch on the per-rank element count: the
+butterfly up to ``BUTTERFLY_MAX_ELEMS`` with a power-of-two n, the fused
+ring from ``BIDIR_MIN_ELEMS`` with n > 2, else reduce-scatter + all-gather
+over hops with zero padding.
+
+Tensors follow the mesh layout (``parallel/mesh.py``): the leading
+dimensions are the mesh's rank axes and each rank's block is contiguous.
+On a CUDA tensor every function launches the kernels; on a CPU tensor it
+runs the plain versions (``hop_plain``, ``fused_ring_allreduce_plain``),
+which sit beside the kernels.  ``use_plain()`` makes the plain versions run
+on a CUDA tensor too: the test oracle of ``chip_smoke.py`` and the tests,
+never a default.  Complex tensors travel as their float pair.
+
+Gradients: each function is a ``torch.autograd.Function`` whose backward
+launches the same kernels: a hop transposes to the inverse hop (a ring
+shift to the reverse shift, ``ring_shift2`` to the swapped pair),
+``all_gather`` to ``reduce_scatter_sum`` and back, and an allreduce-SUM to
+itself.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import threading
+
+import torch
+
+from .. import _build
+
+LAUNCHES = {"hop": 0, "fused_ring": 0}  # kernel launches; read by chip_smoke
+
+MAX_PAIRS = 64  # (rank, payload) pairs of one hop launch: csrc/hop.cu
+
+# Below this many elements per rank the allreduce is latency-bound and takes
+# the butterfly: log2(n) full-payload exchanges (power-of-two n only).
+BUTTERFLY_MAX_ELEMS = 4 * 1024
+# From this many elements per rank (and n > 2) it takes the fused ring.
+BIDIR_MIN_ELEMS = 16 * 1024
+
+# fused_ring_launch's kind codes, by element type
+_RING_KINDS = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
+    torch.uint8: 4, torch.int8: 4, torch.int16: 5, torch.uint16: 5,
+    torch.int32: 6, torch.uint32: 6, torch.int64: 7, torch.uint64: 7,
+}
+# the signed type of each unsigned width: the plain version adds in it
+# (torch has no add for the wide unsigned types; the bits are the same)
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+
+class _Route(threading.local):
+    def __init__(self):
+        self.plain = False
+
+
+_route = _Route()
+
+
+@contextlib.contextmanager
+def use_plain():
+    """Run the plain versions on CUDA tensors too, inside the block: the
+    oracle a kernel run is compared with."""
+    before = _route.plain
+    _route.plain = True
+    try:
+        yield
+    finally:
+        _route.plain = before
+
+
+def on_kernel(x: torch.Tensor) -> bool:
+    """True where ``x`` goes through the kernels: a CUDA tensor outside
+    ``use_plain()``.  A tensor on any other device than CPU or CUDA
+    raises."""
+    if x.device.type == "cuda":
+        return not _route.plain
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"tensors on {x.device} are not supported")
+
+
+def _real(x):
+    """A complex tensor as its float pair (last dimension doubled)."""
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def _blocks(x, nranks):
+    """``x`` as ``(nranks, block)``: row r is rank r's block."""
+    if x.numel() % nranks:
+        raise ValueError(
+            f"a tensor of shape {tuple(x.shape)} does not split into "
+            f"{nranks} rank blocks")
+    return x.reshape(nranks, -1)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: the hop
+# ---------------------------------------------------------------------------
+
+
+def _check_table(dst, k):
+    """``dst`` as a tuple of rows, one per rank, of k destinations (an int
+    or None); each payload's destinations must be distinct."""
+    dst = tuple(tuple(row) for row in dst)
+    n = len(dst)
+    for row in dst:
+        if len(row) != k:
+            raise ValueError(f"a destination row has {len(row)} entries, "
+                             f"expected {k}")
+    for i in range(k):
+        seen = [row[i] for row in dst if row[i] is not None]
+        if any(not 0 <= d < n for d in seen):
+            raise ValueError(f"payload {i}: destination out of range 0..{n - 1}")
+        if len(set(seen)) != len(seen):
+            raise ValueError(f"payload {i}: two ranks send to one rank")
+    return dst
+
+
+def _bijective(dst, i):
+    return all(row[i] is not None for row in dst)
+
+
+def _invert(dst, k):
+    n = len(dst)
+    inv = [[None] * k for _ in range(n)]
+    for r, row in enumerate(dst):
+        for i, d in enumerate(row):
+            if d is not None:
+                inv[d][i] = r
+    return tuple(tuple(row) for row in inv)
+
+
+def hop_plain(xs, dst):
+    """The plain version of the hop: an index copy per payload."""
+    n = len(dst)
+    outs = []
+    for i, x in enumerate(xs):
+        src = _blocks(x, n)
+        out = torch.zeros_like(src)
+        rows = [r for r in range(n) if dst[r][i] is not None]
+        if rows:
+            to = torch.tensor([dst[r][i] for r in rows], device=x.device)
+            out[to] = src[torch.tensor(rows, device=x.device)]
+        outs.append(out.reshape(x.shape))
+    return tuple(outs)
+
+
+def _hop_kernel(xs, dst):
+    n = len(dst)
+    # the contiguous inputs stay referenced until the launch is enqueued
+    xs = [x.contiguous() for x in xs]
+    srcs, dsts, nbytes, outs = [], [], [], []
+    for i, x in enumerate(xs):
+        out = (torch.empty_like(x) if _bijective(dst, i)
+               else torch.zeros_like(x))
+        outs.append(out)
+        block = x.numel() * x.element_size() // n
+        if block == 0:
+            continue
+        for r in range(n):
+            d = dst[r][i]
+            if d is not None:
+                srcs.append(x.data_ptr() + r * block)
+                dsts.append(out.data_ptr() + d * block)
+                nbytes.append(block)
+    if not srcs:
+        return tuple(outs)
+    if len(srcs) > MAX_PAIRS:
+        raise ValueError(
+            f"a hop of {len(srcs)} (rank, payload) pairs; one launch takes "
+            f"at most {MAX_PAIRS}")
+    lib = _build.library("hop")
+    fn = lib.hop_launch
+    if fn.argtypes is None:  # declared once per loaded library
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    m = len(srcs)
+    dev = xs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    src_arr = (ctypes.c_ulonglong * m)(*srcs)
+    dst_arr = (ctypes.c_ulonglong * m)(*dsts)
+    len_arr = (ctypes.c_longlong * m)(*nbytes)
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(src_arr), ctypes.addressof(dst_arr),
+                 ctypes.addressof(len_arr), m, stream)
+    if err != 0:
+        raise RuntimeError(f"hop_launch failed: {_build.error_string(lib, err)}")
+    LAUNCHES["hop"] += 1
+    return tuple(outs)
+
+
+def _hop_impl(xs, dst):
+    n = len(dst)
+    for x in xs:
+        _blocks(x, n)
+        if x.device != xs[0].device:
+            raise ValueError(f"payloads on {x.device} and {xs[0].device}")
+    if on_kernel(xs[0]):
+        return _hop_kernel(xs, dst)
+    return hop_plain(xs, dst)
+
+
+class _Hop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dst, *xs):
+        ctx.dst = dst
+        return _hop_impl(xs, dst)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # the cotangent flows back along each message edge
+        return (None, *hop(gs, _invert(ctx.dst, len(gs))))
+
+
+def hop(xs, dst):
+    """k payloads, one launch: ``out_i[dst[r][i]] = xs[i][r]``.
+
+    ``xs``: k tensors whose leading dimensions hold the ranks (row r of
+    ``x.reshape(n, -1)`` is rank r's block).  ``dst``: n rows of k
+    destination ranks; ``None`` sends nothing.  An output block that no
+    rank targets is zero, as ``ppermute`` leaves it.  Returns a tuple.
+    """
+    xs = tuple(xs)
+    dst = _check_table(dst, len(xs))
+    return tuple(_Hop.apply(dst, *xs))
+
+
+# ---------------------------------------------------------------------------
+# functions composed from hops
+# ---------------------------------------------------------------------------
+
+
+def _table(comm, key, targets):
+    """The checked hop table that sends payload i of each mesh rank to the
+    rank with comm rank ``targets[i][c]`` in its group (c its own comm
+    rank), cached on the comm under ``key``."""
+    table = comm.tables.get(key)
+    if table is None:
+        table = _check_table(
+            [tuple(comm.peer(f, t[c]) for t in targets)
+             for f, c in enumerate(comm.ranks())], len(targets))
+        comm.tables[key] = table
+    return table
+
+
+def _shifts(comm, *shifts):
+    n = comm.size()
+    return _table(comm, ("shift",) + shifts,
+                  [[(c + s) % n for c in range(n)] for s in shifts])
+
+
+def ring_shift(x, comm, shift: int = 1):
+    """One hop around the ring of ``comm``: each rank receives the block of
+    rank ``me - shift``."""
+    if shift == 0:
+        return x
+    return _Hop.apply(_shifts(comm, shift), x)[0]
+
+
+def ring_shift2(a, b, comm):
+    """One bidirectional ring step in one launch: ``a`` moves right and
+    ``b`` left; returns ``(a', b')``, ``a'`` the left neighbour's ``a`` and
+    ``b'`` the right neighbour's ``b``."""
+    return tuple(_Hop.apply(_shifts(comm, 1, -1), a, b))
+
+
+def exchange(x, comm, partners):
+    """Pairwise exchange: comm rank c receives the block of comm rank
+    ``partners[c]`` (an involution, such as the butterfly's XOR)."""
+    partners = tuple(partners)
+    return _Hop.apply(_table(comm, ("exchange", partners), [partners]), x)[0]
+
+
+def _all_gather_impl(x, comm):
+    n = comm.size()
+    lead = comm.layout_shape
+    local = x.shape[len(lead):]
+    if n == 1:
+        return x.unsqueeze(len(lead)).clone()
+    cur, stacked = x, [x]
+    for _ in range(n - 1):
+        cur = ring_shift(cur, comm, 1)
+        stacked.append(cur)
+    # stacked[s] holds comm rank (me - s)'s block; row j wants rank j's
+    rows = torch.stack([_blocks(s, comm.nranks) for s in stacked], dim=1)
+    me = torch.tensor(comm.ranks(), device=x.device)
+    src = (me[:, None] - torch.arange(n, device=x.device)[None, :]) % n
+    out = rows[torch.arange(comm.nranks, device=x.device)[:, None], src]
+    return out.reshape(*lead, n, *local)
+
+
+def _reduce_scatter_impl(x, comm):
+    n = comm.size()
+    lead = comm.layout_shape
+    local = x.shape[len(lead):]
+    if not local or local[0] % n:
+        raise ValueError(
+            f"reduce_scatter_sum requires a leading local dimension divisible "
+            f"by the ring size ({n}), got local shape {tuple(local)}")
+    if n == 1:
+        return x.clone()
+    view = _blocks(x, comm.nranks).reshape(comm.nranks, n, -1)
+    me = torch.tensor(comm.ranks(), device=x.device)
+    every = torch.arange(comm.nranks, device=x.device)
+
+    def chunk(s):
+        # chunk forwarded at step s: after n-1 hops chunk `me` lands
+        return view[every, (me - 1 - s) % n]
+
+    partial = chunk(0)
+    for s in range(1, n):
+        partial = chunk(s) + ring_shift(partial, comm, 1)
+    return partial.reshape(*lead, local[0] // n, *local[1:])
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        ctx.shape = x.shape
+        return _all_gather_impl(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y_r[j] = x_j on every rank r, so dx = sum_r g_r[me]: this rank's
+        # chunk of a reduce-scatter over the flattened cotangent rows
+        lead = ctx.comm.layout_shape
+        flat = g.reshape(*lead, -1)
+        return reduce_scatter_sum(flat, ctx.comm).reshape(ctx.shape), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        ctx.shape = x.shape
+        return _reduce_scatter_impl(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y_me = sum_r x_r[chunk me]: dx[chunk j] = g_j, an all-gather
+        rows = all_gather(g, ctx.comm)
+        return rows.reshape(ctx.shape), None
+
+
+def all_gather(x, comm):
+    """Ring all-gather over hops: ``(*lead, n, *local)``, row j = comm rank
+    j's block (n-1 hops of one block each)."""
+    return _AllGather.apply(x, comm)
+
+
+def reduce_scatter_sum(x, comm):
+    """Ring reduce-scatter (SUM) over hops: the local ``(n*c, ...)``
+    becomes this rank's fully reduced chunk ``(c, ...)`` (chunk = rank).
+    At step s each rank forwards the partial of chunk ``(me - 1 - s) % n``
+    and adds its own contribution as the partial passes."""
+    return _ReduceScatter.apply(x, comm)
+
+
+def _allreduce_butterfly(flat, comm):
+    n = comm.size()
+    acc = flat
+    k = 1
+    while k < n:
+        acc = acc + exchange(acc, comm, [c ^ k for c in range(n)])
+        k *= 2
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: the fused ring allreduce
+# ---------------------------------------------------------------------------
+
+
+def _chunk_lo(count, n, i):
+    per = -(-count // n)
+    return min(per * i, count)
+
+
+def fused_ring_allreduce_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The plain version of the fused ring: a torch replay of
+    ``topo.simulate_ring_sum``'s association over the n rows of ``rows``
+    ``(n, count)``; every row of the result is the sum."""
+    n, count = rows.shape
+    signed = _SIGNED.get(rows.dtype)
+    bufs = rows.view(signed) if signed is not None else rows
+    bufs = bufs.clone()
+    for s in range(n - 1):
+        for r in range(n):
+            # rank r folds chunk (r-1-s) % n arriving from its left; no
+            # chunk is read and written in one step
+            c = (r - 1 - s) % n
+            lo, hi = _chunk_lo(count, n, c), _chunk_lo(count, n, c + 1)
+            bufs[r, lo:hi] = bufs[r, lo:hi] + bufs[(r - 1) % n, lo:hi]
+    out = torch.empty_like(bufs)
+    for c in range(n):
+        lo, hi = _chunk_lo(count, n, c), _chunk_lo(count, n, c + 1)
+        out[:, lo:hi] = bufs[(c - 1) % n, lo:hi]
+    return out.view(rows.dtype) if signed is not None else out
+
+
+def fused_ring_kernel(rows: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/fused_ring.cu`` on contiguous CUDA ``rows``
+    ``(n, count)``: the same function as ``fused_ring_allreduce_plain``."""
+    n, count = rows.shape
+    kind = _RING_KINDS.get(rows.dtype)
+    if kind is None:
+        raise TypeError(f"the fused ring takes no {rows.dtype}")
+    if not rows.is_cuda:
+        raise ValueError(f"fused_ring_kernel needs a CUDA tensor, got "
+                         f"{rows.device}")
+    rows = rows.contiguous()
+    out = torch.empty_like(rows)
+    if count == 0 or n == 1:
+        return out.copy_(rows)
+    lib = _build.library("fused_ring")
+    fn = lib.fused_ring_launch
+    if fn.argtypes is None:  # declared once per loaded library
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    with torch.cuda.device(rows.device):
+        err = fn(rows.data_ptr(), out.data_ptr(), count, n, kind, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_ring_launch failed: {_build.error_string(lib, err)}")
+    LAUNCHES["fused_ring"] += 1
+    return out
+
+
+def _to_front(x, comm):
+    """``x`` as ``(n, groups, *local)``: the comm's rank dimensions first
+    and flattened, the mesh's other rank dimensions next."""
+    lead = len(comm.layout)
+    dims = comm.dims
+    rest = [d for d in range(lead) if d not in dims]
+    perm = list(dims) + rest + list(range(lead, x.dim()))
+    return x.permute(perm).reshape(comm.size(), -1, *x.shape[lead:])
+
+
+def _from_front(y, comm, shape):
+    """The inverse of ``_to_front`` for a tensor of the mesh shape
+    ``shape``."""
+    lead = len(comm.layout)
+    dims = comm.dims
+    rest = [d for d in range(lead) if d not in dims]
+    order = list(dims) + rest
+    permuted = [shape[d] for d in order] + list(shape[lead:])
+    y = y.reshape(permuted)
+    inverse = [0] * lead
+    for i, d in enumerate(order):
+        inverse[d] = i
+    return y.permute(inverse + list(range(lead, len(shape))))
+
+
+def _fused_ring_impl(x, comm):
+    n = comm.size()
+    if n == 1:
+        return x.clone()
+    real = _real(x)
+    front = _to_front(real, comm)
+    rows = front.reshape(n, front.shape[1], -1)
+    ring = (fused_ring_kernel if on_kernel(x)
+            else fused_ring_allreduce_plain)
+    if rows.shape[1] == 1:  # the comm spans the mesh: one ring
+        out = ring(rows[:, 0].contiguous()).reshape(real.shape)
+    else:  # one ring per group of the comm
+        out = torch.stack([ring(rows[:, g].contiguous())
+                           for g in range(rows.shape[1])], dim=1)
+        out = _from_front(out, comm, real.shape).contiguous()
+    return torch.view_as_complex(out) if x.is_complex() else out
+
+
+class _FusedRing(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _fused_ring_impl(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the cotangent of an allreduce-SUM is an allreduce-SUM
+        return fused_ring_allreduce_sum(g, ctx.comm), None
+
+
+def fused_ring_allreduce_sum(x, comm):
+    """Ring allreduce (SUM) in one kernel launch per ring, with the native
+    ``_chunk_lo`` chunks: the f32 result is bit for bit
+    ``topo.simulate_ring_sum`` of the ranks' blocks."""
+    return _FusedRing.apply(x, comm)
+
+
+# ---------------------------------------------------------------------------
+# the allreduce dispatch
+# ---------------------------------------------------------------------------
+
+
+def allreduce_arm(count: int, n: int) -> str:
+    """The arm ``allreduce_sum`` takes for ``count`` elements per rank over
+    ``n`` ranks: "identity", "butterfly", "fused_ring" or "hop_rs_ag"."""
+    if n == 1:
+        return "identity"
+    if count <= BUTTERFLY_MAX_ELEMS and (n & (n - 1)) == 0:
+        return "butterfly"
+    if count >= BIDIR_MIN_ELEMS and n > 2:
+        return "fused_ring"
+    return "hop_rs_ag"
+
+
+def _allreduce_sum_impl(x, comm):
+    n = comm.size()
+    lead = comm.layout_shape
+    local = x.shape[len(lead):]
+    flat = x.reshape(*lead, -1)
+    count = flat.shape[-1]
+    arm = allreduce_arm(count, n)
+    if arm == "identity":
+        return x.clone()
+    if arm == "butterfly":
+        return _allreduce_butterfly(flat, comm).reshape(x.shape)
+    if arm == "fused_ring":
+        return _fused_ring_impl(x, comm)
+    pad = (-count) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(*lead, pad)], dim=-1)
+    mine = _reduce_scatter_impl(flat, comm)
+    full = _all_gather_impl(mine, comm).reshape(*lead, -1)
+    if pad:
+        full = full[..., :count]
+    return full.reshape(*lead, *local)
+
+
+class _AllreduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _allreduce_sum_impl(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce_sum(g, ctx.comm), None
+
+
+def allreduce_sum(x, comm):
+    """Allreduce (SUM) over ``comm``, dispatched on the per-rank element
+    count (see ``allreduce_arm``).  Differentiable: the cotangent of an
+    allreduce-SUM is an allreduce-SUM."""
+    return _AllreduceSum.apply(x, comm)
+
+
+def ring_shift_of(perm, size: int):
+    """If ``perm`` is exactly the ring pattern ``i -> (i+k) % n`` for some
+    nonzero k, return k; else None."""
+    pairs = set((int(a), int(b)) for a, b in perm)
+    if len(pairs) != size:
+        return None
+    shifts = set((b - a) % size for a, b in pairs)
+    if len(shifts) != 1:
+        return None
+    k = shifts.pop()
+    if k == 0:
+        return None
+    if pairs != {(i, (i + k) % size) for i in range(size)}:
+        return None
+    return k

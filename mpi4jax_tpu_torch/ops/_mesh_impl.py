@@ -1,0 +1,135 @@
+"""Mesh-tier implementations of the ported ops.
+
+The counterpart of ``mpi4jax_tpu/ops/_mesh_impl.py``, for the four ops
+that the decomposed solver and the allreduce sweep need.  Tensors follow the
+mesh layout of ``parallel/mesh.py``: the leading dimensions are the mesh's
+rank axes, and an op over ``comm`` acts along the comm's axes, batched over
+the others.
+
+==============  =====================================================
+allreduce       SUM: ``_collectives.allreduce_sum`` (hop and fused-ring
+                kernels); MAX/MIN: ``amax``/``amin`` over the rank
+                dimension, as the JAX package takes ``lax.pmax``/``pmin``
+                outside any Pallas kernel; logical ops on a 0/1 view;
+                PROD, bitwise and custom ops: all-gather then a local fold
+allgather       ``_collectives.all_gather`` (hops)
+sendrecv        a ring permutation rides ``ring_shift``, any other one a
+                hop; ranks that no rank sends to receive zeros
+scan            Hillis–Steele ladder of ``sendrecv`` (log2 steps)
+==============  =====================================================
+
+bcast, reduce, gather, scatter, alltoall, barrier and send/recv are not
+ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _collectives
+from .reduce_ops import ReduceOp
+
+
+def _rank_mask(comm, x, keep):
+    """``keep(rank)`` per mesh rank, shaped to broadcast against ``x``."""
+    r = comm.rank().to(x.device)
+    lead = len(comm.layout)
+    return keep(r).reshape(r.shape + (1,) * (x.dim() - lead))
+
+
+def _over_ranks(x, comm, reduce):
+    """``reduce(stack)`` over the comm's rank dimension, broadcast back to
+    every rank of the group."""
+    front = _collectives._to_front(x, comm)
+    out = reduce(front).unsqueeze(0).expand(front.shape)
+    return _collectives._from_front(out, comm, x.shape).contiguous()
+
+
+def _gathered(x, comm):
+    """Every group's blocks, stacked first: ``(n, *lead, *local)``."""
+    lead = len(comm.layout)
+    return _collectives.all_gather(x, comm).movedim(lead, 0)
+
+
+def allreduce(x, op: ReduceOp, comm):
+    op.check_dtype(x.dtype)
+    if op.kind == "sum":
+        return _collectives.allreduce_sum(x, comm)
+    if op.kind == "max":
+        return _over_ranks(x, comm, lambda s: torch.amax(s, dim=0))
+    if op.kind == "min":
+        return _over_ranks(x, comm, lambda s: torch.amin(s, dim=0))
+    if op.custom:
+        # user-defined: always the generic gather+reduce path
+        return op.reduce(_gathered(x, comm)).to(x.dtype)
+    if op.domain == "bool":
+        # logical ops on a 0/1 view (truthiness, so integer inputs behave
+        # like MPI's logical ops)
+        bits = (x != 0).to(torch.uint8)
+        if op.name == "LAND":
+            out = _over_ranks(bits, comm, lambda s: torch.amin(s, dim=0))
+        elif op.name == "LOR":
+            out = _over_ranks(bits, comm, lambda s: torch.amax(s, dim=0))
+        else:  # LXOR: parity of the count of true values
+            out = _over_ranks(
+                bits.to(torch.int32), comm,
+                lambda s: torch.sum(s, dim=0) % 2)
+        return out.to(x.dtype)
+    # PROD / bitwise: gather then reduce locally
+    return op.reduce(_gathered(x, comm)).to(x.dtype)
+
+
+def allgather(x, comm):
+    return _collectives.all_gather(x, comm)
+
+
+def sendrecv(x, perm, comm):
+    """Send along a static permutation of comm ranks ``[(src, dst), ...]``;
+    ranks that are no destination receive zeros."""
+    n = comm.size()
+    k = _collectives.ring_shift_of(perm, n)
+    if k is not None:
+        return _collectives.ring_shift(x, comm, k)
+    to = {}
+    for s, d in perm:
+        if not (0 <= s < n and 0 <= d < n):
+            raise ValueError(f"pair ({s}, {d}) out of range for {n} ranks")
+        if s in to:
+            raise ValueError(f"rank {s} sends twice in {perm}")
+        to[s] = d
+    if len(set(to.values())) != len(to):
+        raise ValueError(f"a rank receives twice in {perm}")
+    table = [
+        (comm.peer(f, to[c]) if c in to else None,)
+        for f, c in enumerate(comm.ranks())
+    ]
+    return _collectives.hop((x,), table)[0]
+
+
+def scan(x, op: ReduceOp, comm):
+    """Inclusive prefix reduction across ranks (MPI_Scan): log2(n)
+    shift-and-combine steps; ranks below the shift distance keep their
+    partial."""
+    op.check_dtype(x.dtype)
+    n = comm.size()
+    acc = x
+    shift = 1
+    while shift < n:
+        shifted = sendrecv(acc, [(i, i + shift) for i in range(n - shift)],
+                           comm)
+        mask = _rank_mask(comm, acc, lambda r, s=shift: r >= s)
+        acc = torch.where(mask, op.combine(acc, shifted), acc)
+        shift *= 2
+    return acc.to(x.dtype)
+
+
+def ring_perm(size: int, shift: int = 1, wrap: bool = True):
+    """(source, dest) pairs sending each rank's data to ``rank + shift``."""
+    pairs = []
+    for i in range(size):
+        j = i + shift
+        if wrap:
+            pairs.append((i, j % size))
+        elif 0 <= j < size:
+            pairs.append((i, j))
+    return pairs

@@ -1,0 +1,22 @@
+"""scan — inclusive prefix reduction across ranks (MPI_Scan).
+
+The counterpart of ``mpi4jax_tpu/ops/scan.py`` on the mesh tier: a
+log2(size) Hillis–Steele ladder whose shifts are hops
+(``_mesh_impl.scan``).
+"""
+
+from __future__ import annotations
+
+from ..utils import validation as _validation
+from . import _mesh_impl
+from .reduce_ops import SUM, as_reduce_op
+
+
+def scan(x, op=SUM, *, comm=None, token=None):
+    """Rank r receives ``op(x_0, ..., x_r)`` (inclusive prefix)."""
+    op = as_reduce_op(op)
+    comm = _validation.resolve_comm(comm)
+    _validation.check_tensor("scan", x, comm)
+    _validation.check_no_token("scan", token, comm, x)
+    _validation.check_reduce_dtype("scan", op, x, comm)
+    return _mesh_impl.scan(x, op, comm)

@@ -1,0 +1,100 @@
+"""Argument validation for the public op functions.
+
+The counterpart of ``mpi4jax_tpu/utils/validation.py`` and the comm
+resolution of ``mpi4jax_tpu/ops/_dispatch.py``, for the ported ops: every
+op checks its arguments eagerly and names itself, the comm and the tensor in
+the message.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import dtypes as _dtypes
+
+
+class ValidationError(TypeError):
+    pass
+
+
+def _describe(value: Any) -> str:
+    return f"{type(value).__module__}.{type(value).__qualname__}"
+
+
+def check_static_int(name: str, value: Any):
+    """``value`` as an int; bools, tensors and other types raise."""
+    if isinstance(value, (bool, np.bool_)):
+        raise ValidationError(f"{name} must be an integer, got bool")
+    if not isinstance(value, (int, np.integer)):
+        raise ValidationError(
+            f"{name} must be an integer, got {_describe(value)}")
+    return int(value)
+
+
+def op_context(op_name: str, comm=None, x=None) -> str:
+    """`` [op, mesh axes (...), dtype ..., shape (...)]``."""
+    bits = [op_name]
+    if comm is not None:
+        bits.append(f"mesh axes {comm.axes!r}")
+    if isinstance(x, torch.Tensor):
+        bits.append(f"dtype {_dtypes.dtype_name(x.dtype)}")
+        bits.append(f"shape {tuple(x.shape)}")
+    return " [" + ", ".join(bits) + "]"
+
+
+def fail(msg: str, *, op: str, comm=None, x=None, exc=None):
+    """Raise a ``ValidationError`` (or ``exc``) with the op's context."""
+    raise (exc or ValidationError)(msg + op_context(op, comm, x))
+
+
+def resolve_comm(comm):
+    """``comm``, or the ambient one; anything but a ``MeshComm`` raises."""
+    from ..parallel.mesh import MeshComm, get_default_comm
+
+    if comm is None:
+        comm = get_default_comm()
+    if not isinstance(comm, MeshComm):
+        raise TypeError(
+            "comm must be a mpi4jax_tpu_torch communicator (MeshComm), got "
+            f"{type(comm).__qualname__}")
+    return comm
+
+
+def check_tensor(op: str, x: Any, comm):
+    """``x`` must be a tensor of a supported dtype on the comm's device,
+    with the mesh's rank dimensions leading."""
+    if not isinstance(x, torch.Tensor):
+        fail(f"x must be a torch.Tensor, got {_describe(x)}", op=op, comm=comm)
+    try:
+        _dtypes.check_supported(x.dtype)
+    except TypeError as err:
+        fail(str(err), op=op, comm=comm, x=x)
+    lead = comm.layout_shape
+    if tuple(x.shape[:len(lead)]) != lead:
+        fail(f"the leading dimensions must be the mesh's rank axes {lead}",
+             op=op, comm=comm, x=x, exc=ValueError)
+    if x.device != comm.device:
+        fail(f"x is on {x.device}, the comm on {comm.device}",
+             op=op, comm=comm, x=x, exc=ValueError)
+    return x
+
+
+def check_reduce_dtype(op_name: str, reduce_op, x, comm):
+    """``reduce_op.check_dtype`` with the op's context."""
+    try:
+        reduce_op.check_dtype(x.dtype)
+    except TypeError as err:
+        raise ValidationError(f"{err}{op_context(op_name, comm, x)}") from None
+
+
+def check_no_token(op: str, token, comm=None, x=None):
+    """The token API is not ported: eager program order is the ordering
+    contract of the mesh tier."""
+    if token is not None:
+        fail("token= is not supported: the port runs eagerly, so program "
+             "order is the order of the ops (the token API belongs to the "
+             "world tier, not ported yet)", op=op, comm=comm, x=x,
+             exc=NotImplementedError)

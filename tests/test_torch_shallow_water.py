@@ -149,9 +149,11 @@ def test_kernel_impl_rejects_cpu_state():
 
 
 @pytest.mark.parametrize("grid", [(2, 1), (1, 4), (2, 2)])
-def test_decomposed_grid_raises(grid):
-    with pytest.raises(ValueError, match="1x1"):
-        ShallowWater((16, 32), grid=grid, device="cpu")
+def test_undivided_domain_and_several_devices_raise(grid):
+    with pytest.raises(ValueError, match="not divisible"):
+        ShallowWater((15, 30), grid=grid, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ShallowWater((16, 32), grid=grid, device=["cuda:0", "cuda:1"])
 
 
 def test_unknown_impl_raises():
@@ -160,9 +162,15 @@ def test_unknown_impl_raises():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, imported, brings in neither JAX nor the
+    JAX package."""
     code = (
-        "import sys, mpi4jax_tpu_torch, mpi4jax_tpu_torch._build, "
-        "mpi4jax_tpu_torch.examples.shallow_water\n"
+        "import importlib, pkgutil, sys, mpi4jax_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mpi4jax_tpu' or m.startswith('mpi4jax_tpu.')]\n"
         "assert not bad, bad\n"
