@@ -6,7 +6,7 @@
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. the card's name and power limit; build the three kernels of
+1. the card's name and power limit; build the four kernels of
    ``mpi4jax_tpu_torch/csrc/`` with nvcc, one process each, all started
    together, and print the fused step's build time and ptxas lines;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
@@ -49,12 +49,28 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    kernel, the counters reset just before and read just after; h finite,
    mass to 1e-5, bit for bit the same run on the plain hop, and within
    ``GRID_TOL`` of the 1x1 run of phase 4; the share of a step that the
-   halo exchanges take (CUDA events).
+   halo exchanges take (CUDA events);
+11. the build of the alltoall kernel (``csrc/alltoall.cu``): build time
+   and ptxas lines;
+12. the alltoall kernel against ``alltoall_plain`` on the card, bit for
+   bit: n = 2, 3, 4 and 8 and both axes of a 2x4 grid; f32, f64, bf16,
+   complex64, int8, uint8 and bool; rows of one element, odd byte counts,
+   counts that are no multiple of 16, several 64 KiB chunks and empty rows;
+   the backward pass, and scatter, bcast, reduce, gather and barrier through
+   their fronts, each against the same call on the plain route; its time
+   per launch at the 256^3 n = 4 transpose (128 MiB of complex64), beside
+   its bound, its plain version and ``x.transpose(0, 1).contiguous()``;
+13. path (c): the spectral Poisson solve (``mpi4jax_tpu_torch.benchmarks.
+   spectral``) of the manufactured 256^3 problem at n = 1, 4 and 8 (one
+   warm-up solve, then 5 timed), the counters reset just before each run
+   and read just after: 2 alltoall launches per solve at n > 1; the
+   solution to 1e-3, bit for bit the same solve on the plain route, and the
+   share of a solve that the alltoalls take (CUDA events).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
-no result.  ``--rehearse`` runs phases 2-4 and 7-10 on the CPU through the
-plain versions at a small size and prints no result line.
+no result.  ``--rehearse`` runs phases 2-4, 7-10, 12 and 13 on the CPU
+through the plain versions at a small size and prints no result line.
 """
 
 from __future__ import annotations
@@ -70,9 +86,11 @@ import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
+from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
 from mpi4jax_tpu_torch.models import shallow_water as sw
+from mpi4jax_tpu_torch.models import spectral
 from mpi4jax_tpu_torch.ops import _collectives as coll
 from mpi4jax_tpu_torch.ops import _mesh_impl
 from mpi4jax_tpu_torch.parallel.grid import ProcessGrid
@@ -87,7 +105,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # fluxes/q/ke 30, tendencies and Adams-Bashforth 48, viscous fluxes 12,
 # viscous update 14
 FLOPS_PER_CELL_STEP = 104
-KERNELS = ("sw_step", "hop", "fused_ring")
+KERNELS = ("sw_step", "hop", "fused_ring", "alltoall")
 HOP_DTYPES = (torch.float32, torch.float64, torch.int32, torch.bfloat16,
               torch.complex64, torch.uint8)
 HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
@@ -100,6 +118,16 @@ GRID = (2, 2)
 # phase 10): the two inits associate the prefix integral and the mean
 # differently, and the 1x1 run goes through the fused-step kernel
 GRID_TOL = 1e-2
+A2A_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.complex64,
+              torch.int8, torch.uint8, torch.bool)
+# rows of 1 element, odd byte counts, no multiple of 16, 16-byte multiples,
+# several 64 KiB chunks, empty rows
+A2A_RESTS = ((), (5,), (3, 7), (1030,), (9000, 3), (0,))
+SPECTRAL_N = 256
+SPECTRAL_RANKS = (1, 4, 8)
+SOLVES = 5
+# the manufactured Poisson solution's tolerance (tests/models/test_spectral.py)
+POISSON_TOL = 1e-3
 
 
 def log(msg=""):
@@ -185,7 +213,11 @@ def abs_diff(a, b):
 
 def random_tensor(shape, dtype, dev, seed):
     g = torch.Generator().manual_seed(seed)
-    if dtype.is_complex:
+    if dtype == torch.bool:
+        x = torch.randint(0, 2, shape, generator=g).bool()
+    elif dtype == torch.int8:
+        x = torch.randint(-128, 128, shape, generator=g, dtype=dtype)
+    elif dtype.is_complex:
         x = torch.randn(shape, generator=g, dtype=dtype)
     elif dtype.is_floating_point:
         x = torch.randn(shape, generator=g).to(dtype)
@@ -461,6 +493,179 @@ def path_a(shape, dev, ref_1x1, on_card, reps):
                 halo_share=share, twin_secs=twin_secs, times=times)
 
 
+def check_alltoall(dev, on_card):
+    """Phase 12: the alltoall kernel against alltoall_plain, bit for bit,
+    and the fronts built on it against the plain route."""
+    grid = ProcessGrid((2, 4), device=dev)
+    comms = ([make_mesh(n, device=dev) for n in (2, 3, 4, 8)]
+             + [grid.axis_comm(0), grid.axis_comm(1)])
+    cases = 0
+    seed = 300
+    for comm in comms:
+        for dtype in A2A_DTYPES:
+            for rest in A2A_RESTS:
+                seed += 1
+                x = random_tensor(comm.layout_shape + (comm.size(),) + rest,
+                                  dtype, dev, seed)
+                before = coll.LAUNCHES["alltoall"]
+                tag = f"alltoall on {comm} {dtype} rest {rest}"
+                same_as_plain(tag, coll.alltoall, x, comm)
+                launched = coll.LAUNCHES["alltoall"] - before
+                if on_card and launched != (1 if x.numel() else 0):
+                    fail(f"{tag}: {launched} launches")
+                cases += 1
+    for comm in (comms[2], comms[5]):
+        seed += 1
+        x = random_tensor(comm.layout_shape + (comm.size(), 7),
+                          torch.float32, dev, seed)
+        w = random_tensor(x.shape, torch.float32, dev, seed + 1000)
+
+        def grad(v, comm=comm, w=w):
+            v = v.detach().requires_grad_()
+            (coll.alltoall(v, comm) * w).sum().backward()
+            return v.grad
+
+        same_as_plain(f"alltoall backward on {comm}", grad, x)
+        cases += 1
+    for n in (3, 4, 8):
+        comm = make_mesh(n, device=dev)
+        x = random_tensor((n, n, 5), torch.float32, dev, n)
+        flags = random_tensor((n, 3), torch.bool, dev, n + 1)
+        for what, fn, arg in (
+                ("scatter", lambda v: ops.scatter(v, n - 1, comm=comm), x),
+                ("bcast", lambda v: ops.bcast(v, 1, comm=comm), x),
+                ("bcast bool", lambda v: ops.bcast(v, 0, comm=comm), flags),
+                ("reduce SUM", lambda v: ops.reduce(v, ops.SUM, 2, comm=comm),
+                 x),
+                ("reduce MAX", lambda v: ops.reduce(v, ops.MAX, 0, comm=comm),
+                 x),
+                ("gather", lambda v: ops.gather(v, 0, comm=comm), x)):
+            same_as_plain(f"{what} n={n}", fn, arg)
+            cases += 1
+        if ops.barrier(comm=comm) is not None:
+            fail("barrier returned a value")
+    sync(dev)
+    log(f"  {cases} alltoall calls (kernel, backward, fronts) equal their "
+        "plain versions bit for bit")
+    return cases
+
+
+def time_alltoall(dev, size=SPECTRAL_N, n=4):
+    """The alltoall's time per launch on path (c)'s x-to-y transpose at
+    size^3 complex64 over n ranks."""
+    comm = make_mesh(n, device=dev)
+    x = random_tensor((n, n, size // n, size // n, size), torch.complex64,
+                      dev, 13)
+    ms = time_ms(lambda: coll.alltoall(x, comm), 50)
+    with coll.use_plain():
+        plain_ms = time_ms(lambda: coll.alltoall(x, comm), 10)
+    lib_ms = time_ms(lambda: x.transpose(0, 1).contiguous(), 50)
+    nbytes = x.numel() * x.element_size()
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    # at 64 bytes per rank the call is all host work: validation, the
+    # table lookup, one allocation, ctypes
+    tiny = random_tensor((n, n, 4), torch.float32, dev, 14)
+    host_us = time_ms(lambda: ops.alltoall(tiny, comm=comm), 200) * 1e3
+    log(f"  alltoall, {size}^3 complex64 over n={n} ({nbytes} B): "
+        f"{ms:.4f} ms/launch, bound {bound:.4f} ms (bytes), "
+        f"{bound / ms:.3f} of it; plain {plain_ms:.4f} ms; "
+        f"x.transpose(0, 1).contiguous() {lib_ms:.4f} ms; a call of "
+        f"{tiny[0].numel() * 4} B per rank through ops.alltoall "
+        f"{host_us:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                payload_bytes=nbytes, tiny_call_us=host_us)
+
+
+def alltoall_share(comm, f, size):
+    """CUDA-event time of the alltoalls within SOLVES back-to-back solves,
+    over the solves' time; a span also counts any time the card waits for
+    the call's host work."""
+    orig = spectral.alltoall
+    spans = []
+
+    def timed(x, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(x, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    spectral.alltoall = timed
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SOLVES):
+            spectral.poisson_solve(f, comm=comm, shape=(size,) * 3)
+        end.record()
+        end.synchronize()
+    finally:
+        spectral.alltoall = orig
+    part = sum(a.elapsed_time(b) for a, b in spans)
+    whole = start.elapsed_time(end)
+    return part / SOLVES, whole / SOLVES, len(spans) // SOLVES
+
+
+def path_c(dev, size, on_card, card):
+    """Phase 13: the spectral Poisson solve at n = 1, 4 and 8."""
+    rows = []
+    total = 0
+    for ranks in SPECTRAL_RANKS:
+        reset_counts()
+        rec, u = spectral_bench.run(size, ranks, SOLVES, device=dev)
+        launches = dict(coll.LAUNCHES)
+        expect = 2 * (SOLVES + 1) if ranks > 1 else 0
+        if on_card and launches["alltoall"] != expect:
+            fail(f"path (c) n={ranks}: {launches['alltoall']} alltoall "
+                 f"launches, expected {expect}")
+        total += launches["alltoall"]
+        if u.shape != (ranks, size // ranks, size, size) or not bool(
+                torch.isfinite(u).all()):
+            fail(f"path (c) n={ranks}: u has shape {tuple(u.shape)} or is "
+                 "not finite")
+        if not rec["max_abs_err"] <= POISSON_TOL:
+            fail(f"path (c) n={ranks}: |u - u_true| = "
+                 f"{rec['max_abs_err']:.3e}")
+        comm = make_mesh(ranks, device=dev)
+        f, _ = spectral_bench.manufactured(size, comm)
+        t0 = time.perf_counter()
+        with coll.use_plain():
+            twin = spectral.poisson_solve(f, comm=comm, shape=(size,) * 3)
+        sync(dev)
+        twin_secs = time.perf_counter() - t0
+        if not bits_equal(u, twin):
+            fail(f"path (c) n={ranks}: differs from the plain-route solve by "
+                 f"{abs_diff(u, twin):.3e}")
+        row = dict(ranks=ranks, ms_per_solve=rec["ms_per_solve"],
+                   launches=launches["alltoall"],
+                   launches_per_solve=rec["alltoall_launches_per_solve"],
+                   max_abs_err=rec["max_abs_err"], plain_twin_s=twin_secs)
+        msg = ""
+        if on_card:
+            part, whole, calls = alltoall_share(comm, f, size)
+            prof = spectral_bench.device_profile(size, ranks, SOLVES,
+                                                 device=dev)
+            row.update(alltoall_ms=part, solve_ms=whole,
+                       alltoall_share=part / whole, profile=prof)
+            msg = (f"; alltoall spans {part:.4f} of {whole:.4f} ms per "
+                   f"solve ({part / whole:.3f}, {calls} calls); profiler: "
+                   f"card busy {prof['busy_ms_per_solve']:.4f} of "
+                   f"{prof['wall_ms_per_solve']:.4f} ms per solve ("
+                   f"{prof['busy_share']:.3f}), by group "
+                   + ", ".join(f"{k} {v:.4f}" for k, v in
+                               prof["ms_per_solve_by_group"].items()))
+        log(f"  n={ranks}: {rec['ms_per_solve']:.4f} ms per solve (mean of "
+            f"{SOLVES} after one warm-up), launches {launches} "
+            f"({rec['alltoall_launches_per_solve']:.2f} alltoall per timed "
+            f"solve); max |u - u_true| {rec['max_abs_err']:.3e}; bit for bit "
+            f"the plain route ({twin_secs:.4f} s){msg} [{card}]")
+        rows.append(row)
+        del u, twin, f
+    return rows, total
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -603,10 +808,21 @@ def main(argv=None):
     log(f"phase 10: path (a), the {GRID[0]}x{GRID[1]} solver, {DAYS} day at "
         f"{shape} [{card}]")
     a = path_a(shape, dev, h_1x1, on_card, reps)
+    hop_t = time_hop(dev, a["model"]) if on_card else None
+
+    if on_card:
+        log("phase 11: build of the alltoall kernel")
+        log_build("alltoall", build_secs)
+    log(f"phase 12: alltoall kernel vs alltoall_plain [{card}]")
+    check_alltoall(dev, on_card)
+    size = SPECTRAL_N if on_card else 32
+    a2a_t = time_alltoall(dev) if on_card else None
+    log(f"phase 13: path (c), the {size}^3 spectral Poisson solve at n = "
+        f"{', '.join(map(str, SPECTRAL_RANKS))} [{card}]")
+    c_rows, c_launches = path_c(dev, size, on_card, card)
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
-    hop_t = time_hop(dev, a["model"])
 
     hop_row = {
         "name": "hop", "route": "cuda",
@@ -638,8 +854,22 @@ def main(argv=None):
                                      "sum0_us")} for r in recs],
         "card": card,
     }
+    a2a_row = {
+        "name": "alltoall", "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/alltoall.cu",
+        "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:499",
+        "launches": c_launches, "max_abs_err": 0.0, "ok": True,
+        "ms": a2a_t["ms"], "plain_ms": a2a_t["plain_ms"],
+        "bound_ms": a2a_t["bound_ms"], "bound_by": "bytes",
+        "library_ms": a2a_t["library_ms"],
+        "library": "x.transpose(0, 1).contiguous()",
+        "at": f"{SPECTRAL_N}^3 complex64 x-to-y transpose, n=4",
+        "payload_bytes": a2a_t["payload_bytes"],
+        "tiny_call_us": a2a_t["tiny_call_us"], "path_c": c_rows,
+        "card": card,
+    }
     log(f"card: {card}")
-    print(json.dumps({"kernels": [sw_row, hop_row, ring_row]}))
+    print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,13 +8,18 @@ with ``nvcc`` at first use (``_build.py``).
 Ported so far:
 
 - the mesh tier on one card: ``MeshComm``, ``make_mesh``, ``spmd``,
-  ``ProcessGrid``, ``halo_exchange`` and the ops ``allreduce``,
-  ``allgather``, ``sendrecv`` and ``scan``, whose communication runs on the
-  hop kernel (``csrc/hop.cu``) and the fused ring allreduce
-  (``csrc/fused_ring.cu``) through ``ops/_collectives.py``.  Every rank
+  ``ProcessGrid``, ``halo_exchange`` and the twelve ops (``allreduce``,
+  ``allgather``, ``alltoall``, ``bcast``, ``reduce``, ``gather``,
+  ``scatter``, ``scan``, ``sendrecv``, ``barrier``; ``send``, ``recv`` and
+  ``neighbor_exchange`` raise on the mesh tier, as in the JAX package),
+  whose communication runs on the hop kernel (``csrc/hop.cu``), the fused
+  ring allreduce (``csrc/fused_ring.cu``) and the alltoall
+  (``csrc/alltoall.cu``) through ``ops/_collectives.py``.  Every rank
   lives on the one device; the rank axes are leading tensor dimensions;
 - the shallow-water solver (``models/shallow_water.py``) on any 2-D grid,
-  and its fused single-block step kernel (``csrc/sw_step.cu``).
+  and its fused single-block step kernel (``csrc/sw_step.cu``);
+- the slab-decomposed 3-D FFT and Poisson solver
+  (``models/spectral.py``), whose transposes ride the alltoall.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.
@@ -36,21 +41,32 @@ from .ops import (
     ReduceOp,
     allgather,
     allreduce,
+    alltoall,
+    barrier,
+    bcast,
     custom_op,
+    gather,
+    neighbor_exchange,
+    recv,
+    reduce,
     scan,
+    scatter,
+    send,
     sendrecv,
 )
 from .parallel.grid import ProcessGrid
 from .parallel.halo import halo_exchange
 from .parallel.mesh import MeshComm, get_default_comm, make_mesh, spmd
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "ShallowWater", "SWParams", "SWState",
     "MeshComm", "make_mesh", "spmd", "get_default_comm",
     "ProcessGrid", "halo_exchange",
-    "allreduce", "allgather", "sendrecv", "scan",
+    "allreduce", "allgather", "alltoall", "bcast", "reduce", "gather",
+    "scatter", "scan", "sendrecv", "barrier", "send", "recv",
+    "neighbor_exchange",
     "ReduceOp", "custom_op", "ALL_OPS",
     "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR",
     "__version__",

@@ -1,11 +1,19 @@
-"""The ported ops of the mesh tier: allreduce, allgather, sendrecv, scan.
+"""The twelve MPI-style ops on the mesh tier, and ``neighbor_exchange``.
 
-bcast, reduce, gather, scatter, alltoall, barrier and send/recv are queued
-in ROADMAP.md.
+Every op runs on the mesh tier (``_mesh_impl.py``).  send, recv and
+neighbor_exchange belong to the world tier, which is not ported yet: on a
+mesh comm they raise, as the JAX package's do.
 """
 
 from .allgather import allgather
 from .allreduce import allreduce
+from .alltoall import alltoall
+from .barrier import barrier
+from .bcast import bcast
+from .gather import gather
+from .neighbor import neighbor_exchange
+from .recv import recv
+from .reduce import reduce
 from .reduce_ops import (
     ALL_OPS,
     BAND,
@@ -23,12 +31,23 @@ from .reduce_ops import (
     custom_op,
 )
 from .scan import scan
+from .scatter import scatter
+from .send import send
 from .sendrecv import sendrecv
 
 __all__ = [
     "allgather",
     "allreduce",
+    "alltoall",
+    "barrier",
+    "bcast",
+    "gather",
+    "neighbor_exchange",
+    "recv",
+    "reduce",
     "scan",
+    "scatter",
+    "send",
     "sendrecv",
     "ReduceOp",
     "as_reduce_op",

@@ -1,14 +1,17 @@
-"""The mesh tier's collectives on the hop and fused-ring CUDA kernels.
+"""The mesh tier's collectives on the hop, fused-ring and alltoall CUDA
+kernels.
 
-The counterpart of ``mpi4jax_tpu/ops/pallas_collectives.py``.  Two kernels
-carry every function here:
+The counterpart of ``mpi4jax_tpu/ops/pallas_collectives.py``.  Three
+kernels carry every function here:
 
 - ``hop`` (``csrc/hop.cu``): k payloads, each rank's block of payload i
   copied to rank ``dst[r][i]``, in one launch.  ``ring_shift``,
   ``ring_shift2`` (the halo), ``exchange`` (the butterfly), the hop-composed
   ``all_gather`` and ``reduce_scatter_sum`` are built from it, as on the TPU;
 - ``fused_ring_allreduce_sum`` (``csrc/fused_ring.cu``): the whole ring
-  allreduce in one launch, bit for bit ``topo.simulate_ring_sum``.
+  allreduce in one launch, bit for bit ``topo.simulate_ring_sum``;
+- ``alltoall`` (``csrc/alltoall.cu``): every rank's n rows to their
+  destinations in one launch, the own row as a loopback copy.
 
 ``allreduce_sum`` keeps the JAX dispatch on the per-rank element count: the
 butterfly up to ``BUTTERFLY_MAX_ELEMS`` with a power-of-two n, the fused
@@ -18,16 +21,17 @@ over hops with zero padding.
 Tensors follow the mesh layout (``parallel/mesh.py``): the leading
 dimensions are the mesh's rank axes and each rank's block is contiguous.
 On a CUDA tensor every function launches the kernels; on a CPU tensor it
-runs the plain versions (``hop_plain``, ``fused_ring_allreduce_plain``),
-which sit beside the kernels.  ``use_plain()`` makes the plain versions run
-on a CUDA tensor too: the test oracle of ``chip_smoke.py`` and the tests,
-never a default.  Complex tensors travel as their float pair.
+runs the plain versions (``hop_plain``, ``fused_ring_allreduce_plain``,
+``alltoall_plain``), which sit beside the kernels.  ``use_plain()`` makes
+the plain versions run on a CUDA tensor too: the test oracle of
+``chip_smoke.py`` and the tests, never a default.  The hop and the ring
+move complex tensors as their float pair; the alltoall moves bytes.
 
 Gradients: each function is a ``torch.autograd.Function`` whose backward
 launches the same kernels: a hop transposes to the inverse hop (a ring
 shift to the reverse shift, ``ring_shift2`` to the swapped pair),
-``all_gather`` to ``reduce_scatter_sum`` and back, and an allreduce-SUM to
-itself.
+``all_gather`` to ``reduce_scatter_sum`` and back, and an allreduce-SUM and
+an alltoall each to itself.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from .. import _build
 
-LAUNCHES = {"hop": 0, "fused_ring": 0}  # kernel launches; read by chip_smoke
+LAUNCHES = {"hop": 0, "fused_ring": 0, "alltoall": 0}  # read by chip_smoke
 
 MAX_PAIRS = 64  # (rank, payload) pairs of one hop launch: csrc/hop.cu
 
@@ -561,6 +565,96 @@ def allreduce_sum(x, comm):
     count (see ``allreduce_arm``).  Differentiable: the cotangent of an
     allreduce-SUM is an allreduce-SUM."""
     return _AllreduceSum.apply(x, comm)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: the alltoall
+# ---------------------------------------------------------------------------
+
+
+def _alltoall_sources(comm, device):
+    """Per output row ``(f, j)`` of the flattened ``(nranks * n)`` rows,
+    the input row it copies: ``(comm.peer(f, j), c)`` with c the comm rank
+    of mesh rank f.  An int32 tensor on ``device``, cached on the comm."""
+    key = ("alltoall", str(device))
+    src = comm.tables.get(key)
+    if src is None:
+        n = comm.size()
+        rows = [comm.peer(f, j) * n + c
+                for f, c in enumerate(comm.ranks()) for j in range(n)]
+        src = torch.tensor(rows, dtype=torch.int32, device=device)
+        comm.tables[key] = src
+    return src
+
+
+def _check_alltoall(x, comm):
+    n = comm.size()
+    local = x.shape[len(comm.layout):]
+    if not local or local[0] != n:
+        raise ValueError(
+            f"alltoall requires leading axis == communicator size ({n}), "
+            f"got local shape {tuple(local)}")
+
+
+def alltoall_plain(x, comm):
+    """The plain version of the alltoall: an index copy of the rows."""
+    npairs = comm.nranks * comm.size()
+    rows = x.reshape(npairs, x.numel() // npairs)
+    src = _alltoall_sources(comm, x.device)
+    return torch.index_select(rows, 0, src).reshape(x.shape)
+
+
+def _alltoall_kernel(x, comm):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    npairs = comm.nranks * comm.size()
+    row_bytes = x.numel() * x.element_size() // npairs
+    if row_bytes == 0:
+        return out
+    src = _alltoall_sources(comm, x.device)
+    lib = _build.library("alltoall")
+    fn = lib.alltoall_launch
+    if fn.argtypes is None:  # declared once per loaded library
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), src.data_ptr(), row_bytes,
+                 npairs, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"alltoall_launch failed: {_build.error_string(lib, err)}")
+    LAUNCHES["alltoall"] += 1
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        if on_kernel(x):
+            return _alltoall_kernel(x, comm)
+        return alltoall_plain(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        # out[f, j] = x[peer(f, j), c_f]: the cotangent of row i is what
+        # rank i holds for us, another alltoall (the op is its own
+        # transpose)
+        return alltoall(g, ctx.comm), None
+
+
+def alltoall(x, comm):
+    """Direct alltoall in one launch: ``x`` is ``(*lead, n, *rest)``; mesh
+    rank f, with comm rank c, receives ``out[f, j] = x[comm.peer(f, j), c]``
+    (``lax.all_to_all(split_axis=0, concat_axis=0)`` per rank).  With n = 1
+    it returns ``x`` and launches nothing.  Differentiable: the op is its
+    own transpose."""
+    _check_alltoall(x, comm)
+    if comm.size() == 1:
+        return x
+    return _AllToAll.apply(x, comm)
 
 
 def ring_shift_of(perm, size: int):

@@ -1,7 +1,6 @@
-"""Mesh-tier implementations of the ported ops.
+"""Mesh-tier implementations of the ops.
 
-The counterpart of ``mpi4jax_tpu/ops/_mesh_impl.py``, for the four ops
-that the decomposed solver and the allreduce sweep need.  Tensors follow the
+The counterpart of ``mpi4jax_tpu/ops/_mesh_impl.py``.  Tensors follow the
 mesh layout of ``parallel/mesh.py``: the leading dimensions are the mesh's
 rank axes, and an op over ``comm`` acts along the comm's axes, batched over
 the others.
@@ -13,13 +12,20 @@ allreduce       SUM: ``_collectives.allreduce_sum`` (hop and fused-ring
                 outside any Pallas kernel; logical ops on a 0/1 view;
                 PROD, bitwise and custom ops: all-gather then a local fold
 allgather       ``_collectives.all_gather`` (hops)
+alltoall        ``_collectives.alltoall`` (the alltoall kernel)
+bcast           masked SUM allreduce (only the root contributes)
+reduce          allreduce + select (non-root ranks keep their input)
+scan            Hillis–Steele ladder of ``sendrecv`` (log2 steps)
+scatter         alltoall + the root's row
+gather          allgather (result replicated: the SPMD divergence of
+                DESIGN.md)
 sendrecv        a ring permutation rides ``ring_shift``, any other one a
                 hop; ranks that no rank sends to receive zeros
-scan            Hillis–Steele ladder of ``sendrecv`` (log2 steps)
+barrier         SUM allreduce of one zero per rank
 ==============  =====================================================
 
-bcast, reduce, gather, scatter, alltoall, barrier and send/recv are not
-ported yet (ROADMAP.md).
+send, recv and neighbor_exchange have no mesh route: their fronts raise,
+as the JAX package's do on the mesh tier.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from .reduce_ops import ReduceOp
 
 def _rank_mask(comm, x, keep):
     """``keep(rank)`` per mesh rank, shaped to broadcast against ``x``."""
-    r = comm.rank().to(x.device)
+    r = comm.rank(x.device)
     lead = len(comm.layout)
     return keep(r).reshape(r.shape + (1,) * (x.dim() - lead))
 
@@ -104,6 +110,56 @@ def sendrecv(x, perm, comm):
         for f, c in enumerate(comm.ranks())
     ]
     return _collectives.hop((x,), table)[0]
+
+
+def alltoall(x, comm):
+    return _collectives.alltoall(x, comm)
+
+
+def bcast(x, root: int, comm):
+    # only the root's block is non-zero, so the sum is its block exactly;
+    # bool goes via uint8, the wide unsigned types via their signed twins
+    keep = _rank_mask(comm, x, lambda r: r == root)
+    if x.dtype == torch.bool:
+        bits = torch.where(keep, x, False).to(torch.uint8)
+        return _collectives.allreduce_sum(bits, comm) != 0
+    signed = _collectives._SIGNED.get(x.dtype)
+    v = x.view(signed) if signed is not None else x
+    out = _collectives.allreduce_sum(torch.where(keep, v, 0), comm)
+    return out.view(x.dtype) if signed is not None else out
+
+
+def reduce(x, op: ReduceOp, root: int, comm):
+    # the root receives the reduction, other ranks their input back
+    full = allreduce(x, op, comm)
+    return torch.where(_rank_mask(comm, x, lambda r: r == root), full, x)
+
+
+def gather(x, root: int, comm):
+    # the result (size, *local) on every rank; the root's equals MPI's
+    del root
+    return _collectives.all_gather(x, comm)
+
+
+def scatter(x, root: int, comm):
+    n = comm.size()
+    lead = len(comm.layout)
+    local = x.shape[lead:]
+    if not local or local[0] != n:
+        raise ValueError(
+            f"scatter requires input shape (size, ...) = ({n}, ...) on every "
+            f"rank (only root's values are read), got local shape "
+            f"{tuple(local)}")
+    # row j of the alltoall holds rank j's row addressed to us; row `root`
+    # is MPI_Scatter's result
+    return _collectives.alltoall(x, comm).select(lead, root)
+
+
+def barrier(comm):
+    # no rank waits on another in one program on one stream; a SUM
+    # allreduce of one zero per rank still runs the collective path
+    z = torch.zeros(comm.layout_shape, dtype=torch.int32, device=comm.device)
+    _collectives.allreduce_sum(z, comm)
 
 
 def scan(x, op: ReduceOp, comm):

@@ -1,0 +1,21 @@
+"""bcast — broadcast the root's block to every rank.
+
+The counterpart of ``mpi4jax_tpu/ops/bcast.py`` on the mesh tier: a masked
+SUM allreduce, only the root's block contributing, so it rides the hop and
+fused-ring kernels (``_mesh_impl.bcast``).
+"""
+
+from __future__ import annotations
+
+from ..utils import validation as _validation
+from . import _mesh_impl
+
+
+def bcast(x, root=0, *, comm=None, token=None):
+    """Every rank receives the root's block of ``x``; a root outside the
+    communicator raises."""
+    comm = _validation.resolve_comm(comm)
+    _validation.check_tensor("bcast", x, comm)
+    _validation.check_no_token("bcast", token, comm, x)
+    root = _validation.check_root("bcast", root, comm)
+    return _mesh_impl.bcast(x, root, comm)

@@ -1,0 +1,24 @@
+"""reduce — reduce across ranks, the result delivered to the root.
+
+The counterpart of ``mpi4jax_tpu/ops/reduce.py`` on the mesh tier: the
+allreduce, then a per-rank select; the root receives the reduction and the
+other ranks their input back (``_mesh_impl.reduce``).
+"""
+
+from __future__ import annotations
+
+from ..utils import validation as _validation
+from . import _mesh_impl
+from .reduce_ops import SUM, as_reduce_op
+
+
+def reduce(x, op=SUM, root=0, *, comm=None, token=None):
+    """Reduce ``x`` with ``op``; the root receives the result, the others
+    keep ``x``."""
+    op = as_reduce_op(op)
+    comm = _validation.resolve_comm(comm)
+    _validation.check_tensor("reduce", x, comm)
+    _validation.check_no_token("reduce", token, comm, x)
+    root = _validation.check_root("reduce", root, comm)
+    _validation.check_reduce_dtype("reduce", op, x, comm)
+    return _mesh_impl.reduce(x, op, root, comm)

@@ -100,7 +100,8 @@ class MeshComm(CommBase):
             _ravel([_unravel(f, self.layout_shape)[d] for d in self.dims],
                    self.shape)
             for f in range(self.nranks))
-        self.tables: dict = {}  # hop destination tables, by the collectives
+        # hop and alltoall tables of the collectives, rank tensors
+        self.tables: dict = {}
 
     # -- identity -----------------------------------------------------------
     def __hash__(self):
@@ -116,11 +117,19 @@ class MeshComm(CommBase):
     def size(self) -> int:
         return math.prod(self.shape)
 
-    def rank(self) -> torch.Tensor:
+    def rank(self, device=None) -> torch.Tensor:
         """The rank along this comm's axes, as an int64 tensor of shape
-        ``layout_shape``: element ``[i0, i1, ...]`` is that rank's."""
-        return torch.tensor(self.ranks(), dtype=torch.int64,
-                            device=self.device).reshape(self.layout_shape)
+        ``layout_shape`` on ``device`` (default the comm's): element
+        ``[i0, i1, ...]`` is that rank's.  Made once per device and shared:
+        callers must not write to it."""
+        dev = self.device if device is None else torch.device(device)
+        key = ("rank", str(dev))
+        r = self.tables.get(key)
+        if r is None:
+            r = torch.tensor(self.ranks(), dtype=torch.int64,
+                             device=dev).reshape(self.layout_shape)
+            self.tables[key] = r
+        return r
 
     def ranks(self) -> tuple:
         """Per mesh rank (row-major over the layout), its rank on this

@@ -98,3 +98,20 @@ def check_no_token(op: str, token, comm=None, x=None):
              "order is the order of the ops (the token API belongs to the "
              "world tier, not ported yet)", op=op, comm=comm, x=x,
              exc=NotImplementedError)
+
+
+def check_in_range(name: str, value: int, size: int, *, op=None, comm=None):
+    """``value`` must lie in ``[0, size)``."""
+    if not 0 <= value < size:
+        context = op_context(op, comm) if op else ""
+        raise ValidationError(
+            f"{name}={value} out of range for communicator of size "
+            f"{size}{context}")
+    return value
+
+
+def check_root(op: str, root, comm):
+    """``root`` as an int rank of ``comm``: an int in ``[0, size)``."""
+    root = check_static_int("root", root)
+    return check_in_range("root", root, comm.size(), op=op, comm=comm)
+

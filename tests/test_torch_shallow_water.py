@@ -180,7 +180,11 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_no_jax():
-    for path in (REPO / "mpi4jax_tpu_torch").rglob("*.py"):
+    """No source of the port, nor ``chip_smoke.py``, has an import line
+    that names JAX or the JAX package."""
+    paths = [*(REPO / "mpi4jax_tpu_torch").rglob("*.py"),
+             REPO / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
