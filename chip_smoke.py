@@ -6,7 +6,7 @@
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. the card's name and power limit; build the four kernels of
+1. the card's name and power limit; build the five kernels of
    ``mpi4jax_tpu_torch/csrc/`` with nvcc, one process each, all started
    together, and print the fused step's build time and ptxas lines;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
@@ -65,12 +65,34 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    warm-up solve, then 5 timed), the counters reset just before each run
    and read just after: 2 alltoall launches per solve at n > 1; the
    solution to 1e-3, bit for bit the same solve on the plain route, and the
-   share of a solve that the alltoalls take (CUDA events).
+   share of a solve that the alltoalls take (CUDA events);
+14. the build of kernel 5, the flash forward (``csrc/flash_fwd.cu``): build
+   time and ptxas lines;
+15. kernel 5 against ``flash_fwd_block_plain`` on the card at the edge
+   shapes of ``mpi4jax_tpu_torch/ops/_flash_check.py``: f32, bf16 and fp16,
+   D = 16, 32, 64 and 128, causal and not, offsets (0, 0), (64, 0),
+   (16, 32), a fully skipped block and per-row offsets, ragged T, each
+   within ``_flash_check.TOL``;
+16. the hop past 64 (rank, payload) pairs, bit for bit against the plain
+   route: ``ring_shift``, ``ring_shift_n`` and the allreduce on 64 and 65
+   ranks, and ``halo_exchange`` on 6x6 and 8x8 grids; a hop of 64 pairs or
+   fewer stays one launch;
+17. path (d): ring attention's forward (``mpi4jax_tpu_torch.benchmarks.
+   ring_attention``) at B4 T4096 H16 D128 bf16 causal over n = 1 and 4
+   ranks on the card (one warm-up, then 5 timed forwards), the counters
+   reset just before each run and read just after: n flash launches and
+   n - 1 hops per forward; the output finite, within
+   ``_flash_check.RING_TOL`` of the plain route's, and the n = 4 output
+   near the n = 1 output; the card's time per forward by kernel group
+   (``torch.profiler``); kernel 5's time per launch at n = 1 and at each
+   of the four ring steps of n = 4, each beside its bound and each held to
+   the plain version at that shape; the plain version's time and
+   ``scaled_dot_product_attention(is_causal=True)``'s on the same tensors.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
-no result.  ``--rehearse`` runs phases 2-4, 7-10, 12 and 13 on the CPU
-through the plain versions at a small size and prints no result line.
+no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13 and 15-17 on the
+CPU through the plain versions at a small size and prints no result line.
 """
 
 from __future__ import annotations
@@ -86,14 +108,17 @@ import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
+from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import spectral
 from mpi4jax_tpu_torch.ops import _collectives as coll
-from mpi4jax_tpu_torch.ops import _mesh_impl
+from mpi4jax_tpu_torch.ops import _flash_check as flash_chk
+from mpi4jax_tpu_torch.ops import _mesh_impl, flash
 from mpi4jax_tpu_torch.parallel.grid import ProcessGrid
+from mpi4jax_tpu_torch.parallel.halo import halo_exchange
 from mpi4jax_tpu_torch.parallel.mesh import make_mesh
 
 SHAPE = (1800, 3600)
@@ -105,7 +130,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # fluxes/q/ke 30, tendencies and Adams-Bashforth 48, viscous fluxes 12,
 # viscous update 14
 FLOPS_PER_CELL_STEP = 104
-KERNELS = ("sw_step", "hop", "fused_ring", "alltoall")
+KERNELS = ("sw_step", "hop", "fused_ring", "alltoall", "flash_fwd")
 HOP_DTYPES = (torch.float32, torch.float64, torch.int32, torch.bfloat16,
               torch.complex64, torch.uint8)
 HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
@@ -128,6 +153,11 @@ SPECTRAL_RANKS = (1, 4, 8)
 SOLVES = 5
 # the manufactured Poisson solution's tolerance (tests/models/test_spectral.py)
 POISSON_TOL = 1e-3
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores, published
+# path (d): bench.py's _flash_setup and benchmarks/flash_sweep.py
+FLASH_SHAPE = (4, 4096, 16, 128)
+FLASH_RANKS = (1, 4)
+FLASH_ITERS = 5
 
 
 def log(msg=""):
@@ -186,7 +216,7 @@ def compare(got, ref, before, what):
 def log_build(name, build_secs):
     log(f"  csrc/{name}.cu: {build_secs[name]:.2f} s")
     for line in _build.LOGS.get(name, "").splitlines():
-        if "ptxas" in line or "error" in line or "warning" in line:
+        if any(w in line for w in ("ptxas", "spill", "error", "warning")):
             log(f"  {name}: {line.strip()}")
 
 
@@ -194,6 +224,7 @@ def reset_counts():
     kernel.LAUNCHES = 0
     for k in coll.LAUNCHES:
         coll.LAUNCHES[k] = 0
+    flash.LAUNCHES["flash_fwd"] = 0
 
 
 def bits_equal(a, b):
@@ -666,6 +697,203 @@ def path_c(dev, size, on_card, card):
     return rows, total
 
 
+def check_flash(dev, on_card):
+    """Phase 15: kernel 5 against flash_fwd_block_plain at the edge
+    shapes; returns the worst errors by dtype and the case count."""
+    head_dims = flash_chk.HEAD_DIMS if on_card else (16,)
+    worst = {}
+    cases = 0
+    for tag, q, k, v, qo, ko, scale, causal in flash_chk.cases(
+            dev, head_dims=head_dims):
+        got = flash.flash_fwd_block(q, k, v, qo, ko, scale=scale,
+                                    causal=causal)
+        sync(dev)
+        ref = flash.flash_fwd_block_plain(q, k, v, qo, ko, scale=scale,
+                                          causal=causal)
+        errs = flash_chk.errors(got, ref, v)
+        if not flash_chk.within(errs, q.dtype):
+            fail(f"kernel 5 {tag}: {errs} (tolerance "
+                 f"{flash_chk.TOL[q.dtype]})")
+        w = worst.setdefault(str(q.dtype)[6:], {"o": 0.0, "l": 0.0, "m": 0.0,
+                                                "max_abs_err": 0.0})
+        for key in w:
+            w[key] = max(w[key], errs[key])
+        cases += 1
+    for name, w in worst.items():
+        log(f"  {name}: worst o {w['o']:.3e}, l {w['l']:.3e}, m {w['m']:.3e} "
+            f"(normalized), |o - o_plain| {w['max_abs_err']:.3e}")
+    log(f"  {cases} cases within _flash_check.TOL, rows that see no key "
+        "exactly empty")
+    return worst, cases
+
+
+def check_big_hops(dev, on_card):
+    """Phase 16: the hop past 64 (rank, payload) pairs, bit for bit
+    against the plain route, and its launch counts."""
+    cases = 0
+    for n in (64, 65):
+        comm = make_mesh(n, device=dev)
+        x = random_tensor((n, 37), torch.float32, dev, n)
+        y = random_tensor((n, 5), torch.bfloat16, dev, n + 1)
+        before = coll.LAUNCHES["hop"]
+        same_as_plain(f"ring_shift n={n}", coll.ring_shift, x, comm, 1)
+        launched = coll.LAUNCHES["hop"] - before
+        if on_card and launched != (1 if n <= 64 else 2):
+            fail(f"ring_shift over {n} ranks took {launched} hop launches")
+        same_as_plain(f"ring_shift_n n={n}", coll.ring_shift_n, (x, y), comm,
+                      1)
+        same_as_plain(f"ring_shift2 n={n}", coll.ring_shift2, x, y, comm)
+        same_as_plain(f"allreduce n={n}", lambda t: ops.allreduce(t,
+                                                                 comm=comm), x)
+        cases += 4
+    for shape in ((6, 6), (8, 8)):
+        grid = ProcessGrid(shape, device=dev)
+        f = random_tensor(shape + (3, 10, 12), torch.float32, dev, 9)
+        for periodic in (True, False):
+            same_as_plain(f"halo_exchange {shape} periodic={periodic}",
+                          lambda g: halo_exchange(g, grid, periodic=periodic),
+                          f)
+            cases += 1
+    sync(dev)
+    log(f"  {cases} calls past 64 pairs equal their plain versions bit for "
+        "bit; a hop of 64 pairs is one launch, of 65 two")
+    return cases
+
+
+def visible_pairs(offs, t):
+    """(query, key) pairs a causal block sees, over the batch rows of one
+    launch with ``offs`` (rows, 2) and T = t on both sides, and the number
+    of batch rows that see any key."""
+    q_off = offs[:, 0].long().cpu()[:, None]
+    k_off = offs[:, 1].long().cpu()[:, None]
+    rows = torch.arange(t)[None, :]
+    seen = (q_off + rows - k_off + 1).clamp(0, t)
+    return int(seen.sum()), int((seen.sum(1) > 0).sum())
+
+
+def flash_launch(dev, qf, kf, vf, offs, t, reps, plain_reps):
+    """Kernel 5's time per launch on one ring step's inputs, beside its
+    bound, the plain version's time, and the kernel held to the plain
+    version at that shape."""
+    rows, _, d = qf.shape
+    args = (qf, kf, vf, offs)
+    ms = time_ms(lambda: flash._flash_fwd_kernel(*args, scale=1.0,
+                                                 causal=True), reps)
+    got = flash._flash_fwd_kernel(*args, scale=1.0, causal=True)
+    t0 = time.perf_counter()
+    ref = flash.flash_fwd_block_plain(qf, kf, vf, offs[:, 0], offs[:, 1],
+                                      scale=1.0, causal=True)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if plain_reps > 1:
+        plain_ms = time_ms(lambda: flash.flash_fwd_block_plain(
+            qf, kf, vf, offs[:, 0], offs[:, 1], scale=1.0, causal=True),
+            plain_reps)
+    errs = flash_chk.errors(got, ref, vf)
+    if not flash_chk.within(errs, qf.dtype):
+        fail(f"kernel 5 at the path's shape {tuple(qf.shape)}: {errs}")
+    pairs, live_rows = visible_pairs(offs, t)
+    op_ms = 4 * d * pairs / BF16_FLOPS_PER_S * 1e3
+    in_bytes = 3 * live_rows * t * d * qf.element_size()
+    out_bytes = rows * t * (d + 2) * 4
+    mem_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = max(op_ms, mem_ms)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, op_ms=op_ms,
+                mem_ms=mem_ms,
+                bound_by="operations" if op_ms >= mem_ms else "bytes",
+                flop=4 * d * pairs, errors=errs)
+
+
+def path_d(dev, on_card, card):
+    """Phase 17: ring attention's forward at n = 1 and 4."""
+    shape = FLASH_SHAPE if on_card else (1, 64, 2, 16)
+    b, t, h, d = shape
+    qkv = ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=0)
+    vmax = qkv[2].float().abs().max().item()
+    tol = flash_chk.RING_TOL[torch.bfloat16]
+    runs, outs = [], {}
+    total = 0
+    for n in FLASH_RANKS:
+        reset_counts()
+        rec, out = ring_bench.run(shape, n, FLASH_ITERS, torch.bfloat16,
+                                  device=dev, qkv=qkv)
+        launches = flash.LAUNCHES["flash_fwd"]
+        hops = coll.LAUNCHES["hop"]
+        total += launches
+        forwards = FLASH_ITERS + 1  # the warm-up and the timed forwards
+        if on_card and (launches != n * forwards
+                        or hops != (n - 1) * forwards):
+            fail(f"path (d) n={n}: {launches} flash and {hops} hop launches "
+                 f"in {forwards} forwards, expected {n} and {n - 1} each")
+        if out.shape != (n, b, t // n, h, d) or not bool(
+                torch.isfinite(out).all()):
+            fail(f"path (d) n={n}: the output has shape {tuple(out.shape)} "
+                 "or is not finite")
+        if not rec["max_abs_diff"] <= tol * vmax:
+            fail(f"path (d) n={n}: {rec['max_abs_diff']:.3e} from the plain "
+                 f"route, past {tol} x max|v| = {tol * vmax:.3e}")
+        outs[n] = ring_bench.unshard(out).float()
+        rec.update(flash_launches=launches, hop_launches=hops)
+        runs.append(rec)
+        tflops = (f"{rec['tflops']:.1f} TFLOP/s" if rec["tflops"] is not None
+                  else "no rate (CPU)")
+        log(f"  n={n}: {rec['ms_per_forward']:.4f} ms per forward (mean of "
+            f"{FLASH_ITERS} after a warm-up), {tflops}; {launches} flash and "
+            f"{hops} hop launches in {forwards} forwards; plain route "
+            f"{rec['plain_ms']:.4f} ms; |out - plain route| "
+            f"{rec['max_abs_diff']:.3e} (tolerance {tol} x max|v| "
+            f"{vmax:.3f}) [{card}]")
+        if on_card:
+            prof = ring_bench.device_profile(shape, n, device=dev, qkv=qkv)
+            rec["profile"] = prof
+            log(f"  n={n} profiler: card busy "
+                f"{prof['busy_ms_per_forward']:.4f} of "
+                f"{prof['wall_ms_per_forward']:.4f} ms per forward "
+                f"({prof['busy_share']:.3f}), by group "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            prof["ms_per_forward_by_group"].items()))
+    gap = (outs[FLASH_RANKS[0]] - outs[FLASH_RANKS[-1]]).abs().max().item()
+    if not gap <= 2 * tol * vmax:
+        fail(f"path (d): n={FLASH_RANKS[-1]} and n={FLASH_RANKS[0]} differ "
+             f"by {gap:.3e}")
+    log(f"  |out(n={FLASH_RANKS[-1]}) - out(n={FLASH_RANKS[0]})| {gap:.3e}")
+    if not on_card:
+        return runs, total, None
+
+    # kernel 5 per launch: the whole forward at n = 1, each step at n = 4,
+    # on the path's own prescaled q
+    scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.bfloat16).item()
+    steps = {}
+    for n in FLASH_RANKS:
+        comm = make_mesh(n, device=dev)
+        qf, kf, vf = (flash._to_bhtd(ring_bench.shard(x, n)) for x in qkv)
+        qf = qf * scale
+        offs = flash._ring_offsets(comm, b * h, t // n, dev)
+        steps[n] = []
+        for i in range(n):
+            row = flash_launch(dev, qf, kf, vf, offs[i], t // n, 20,
+                               1 if n > 1 else 2)
+            steps[n].append(row)
+            log(f"  kernel 5, n={n} step {i}: {row['ms']:.4f} ms per launch "
+                f"({row['flop'] / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: ops "
+                f"{row['op_ms']:.4f}, bytes {row['mem_ms']:.4f}), "
+                f"{row['bound_ms'] / row['ms']:.3f} of it; plain "
+                f"{row['plain_ms']:.4f} ms; o error {row['errors']['o']:.2e} "
+                f"of l max|v|")
+        del qf, kf, vf
+    q, k, v = (x.transpose(1, 2).contiguous() for x in qkv)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+    lib_out = sdpa(q, k, v, is_causal=True).transpose(1, 2).float()
+    lib_gap = (outs[1] - lib_out).abs().max().item()
+    log(f"  scaled_dot_product_attention(is_causal=True) on the same "
+        f"tensors: {lib_ms:.4f} ms; |out(n=1) - SDPA| {lib_gap:.3e} (the "
+        "port rounds q x scale to bf16 first, as the JAX package does)")
+    return runs, total, dict(steps=steps, library_ms=lib_ms,
+                             library_gap=lib_gap, n_gap=gap)
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -732,8 +960,8 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4 and 7-10 on the CPU, plain versions, "
-                         "small size; prints no result line")
+                    help="phases 2-4, 7-10, 12, 13 and 15-17 on the CPU, "
+                         "plain versions, small size; prints no result line")
     args = ap.parse_args(argv)
 
     on_card = not args.rehearse
@@ -820,6 +1048,19 @@ def main(argv=None):
     log(f"phase 13: path (c), the {size}^3 spectral Poisson solve at n = "
         f"{', '.join(map(str, SPECTRAL_RANKS))} [{card}]")
     c_rows, c_launches = path_c(dev, size, on_card, card)
+
+    if on_card:
+        log("phase 14: build of kernel 5, the flash forward")
+        log_build("flash_fwd", build_secs)
+    log(f"phase 15: kernel 5 vs flash_fwd_block_plain at the edge shapes "
+        f"[{card}]")
+    flash_worst, flash_cases = check_flash(dev, on_card)
+    log(f"phase 16: the hop past 64 (rank, payload) pairs [{card}]")
+    check_big_hops(dev, on_card)
+    log(f"phase 17: path (d), ring attention's forward at "
+        f"{FLASH_SHAPE if on_card else (1, 64, 2, 16)} bf16 causal, n = "
+        f"{', '.join(map(str, FLASH_RANKS))} [{card}]")
+    d_runs, d_launches, d_times = path_d(dev, on_card, card)
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
@@ -868,8 +1109,31 @@ def main(argv=None):
         "tiny_call_us": a2a_t["tiny_call_us"], "path_c": c_rows,
         "card": card,
     }
+    whole = d_times["steps"][1][0]
+    flash_row = {
+        "name": "flash_fwd", "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "mpi4jax_tpu/ops/flash.py:112",
+        "launches": d_launches,
+        "max_abs_err": max(r["errors"]["max_abs_err"]
+                           for rows in d_times["steps"].values()
+                           for r in rows),
+        "ok": True, "ms": whole["ms"], "plain_ms": whole["plain_ms"],
+        "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+        "library_ms": d_times["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention"
+                   "(is_causal=True)",
+        "at": f"B{FLASH_SHAPE[0]} T{FLASH_SHAPE[1]} H{FLASH_SHAPE[2]} "
+              f"D{FLASH_SHAPE[3]} bf16 causal, n=1 (one launch per forward)",
+        "steps_n4": [{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "op_ms", "mem_ms")}
+                     for r in d_times["steps"][4]],
+        "edge_cases": flash_cases, "edge_worst": flash_worst,
+        "path_d": d_runs, "card": card,
+    }
     log(f"card: {card}")
-    print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row]}))
+    print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row,
+                                  flash_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

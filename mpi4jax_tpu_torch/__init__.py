@@ -19,7 +19,12 @@ Ported so far:
 - the shallow-water solver (``models/shallow_water.py``) on any 2-D grid,
   and its fused single-block step kernel (``csrc/sw_step.cu``);
 - the slab-decomposed 3-D FFT and Poisson solver
-  (``models/spectral.py``), whose transposes ride the alltoall.
+  (``models/spectral.py``), whose transposes ride the alltoall;
+- ring attention's forward (``parallel/ring.py``, ``ops/flash.py``): one
+  launch of the flash forward kernel (``csrc/flash_fwd.cu``) per ring step
+  for every rank, and k and v one hop further between steps
+  (``ring_shift_n``).  Its ``impl="xla"`` recurrence is differentiable; the
+  flash route's backward is not ported yet.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.
@@ -57,13 +62,14 @@ from .ops import (
 from .parallel.grid import ProcessGrid
 from .parallel.halo import halo_exchange
 from .parallel.mesh import MeshComm, get_default_comm, make_mesh, spmd
+from .parallel.ring import ring_attention
 
 __version__ = "0.3.0"
 
 __all__ = [
     "ShallowWater", "SWParams", "SWState",
     "MeshComm", "make_mesh", "spmd", "get_default_comm",
-    "ProcessGrid", "halo_exchange",
+    "ProcessGrid", "halo_exchange", "ring_attention",
     "allreduce", "allgather", "alltoall", "bcast", "reduce", "gather",
     "scatter", "scan", "sendrecv", "barrier", "send", "recv",
     "neighbor_exchange",

@@ -32,6 +32,7 @@ import torch
 from ..models import spectral
 from ..ops import _collectives
 from ..parallel.mesh import make_mesh
+from ._profile import kernel_ms_by_group
 
 
 def manufactured(n: int, comm):
@@ -117,37 +118,15 @@ def device_profile(n: int = 256, ranks: int = 4, solves: int = 3, *,
     group (``KERNEL_GROUPS``; ``torch.profiler``, CUPTI) and the share of
     the host-timed window in which the card was busy, the profiler's own
     cost included.  Card only."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     comm = make_mesh(ranks, device=device)
-    if comm.device.type != "cuda":
-        raise RuntimeError("device_profile reads the card's kernel times")
     f, _ = manufactured(n, comm)
-
-    def solve():
-        return spectral.poisson_solve(f, comm=comm, shape=(n, n, n))
-
-    solve()
-    _sync(comm.device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(solves):
-            solve()
-        _sync(comm.device)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / solves
-    groups = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            label = _group(e.key)
-            groups[label] = (groups.get(label, 0.0)
-                             + e.self_device_time_total / solves / 1e3)
+    wall_ms, groups = kernel_ms_by_group(
+        lambda: spectral.poisson_solve(f, comm=comm, shape=(n, n, n)),
+        solves, _group, comm.device)
     busy_ms = sum(groups.values())
     return {"ranks": ranks, "n": n, "wall_ms_per_solve": wall_ms,
             "busy_ms_per_solve": busy_ms, "busy_share": busy_ms / wall_ms,
-            "ms_per_solve_by_group": dict(sorted(groups.items(),
-                                                 key=lambda kv: -kv[1]))}
+            "ms_per_solve_by_group": groups}
 
 
 def main(argv=None):

@@ -13,7 +13,8 @@
 // length) triple per (rank, payload) pair, with the target already offset
 // to the destination rank's block.  The triples travel by value in the
 // kernel's parameter struct (at most 64 pairs, 1.5 KB of the 4 KB that a
-// launch's parameters may hold), so a launch needs no host-to-device copy.
+// launch's parameters may hold), so a launch needs no host-to-device copy;
+// the wrapper splits a hop of more pairs into several launches.
 // A table of pointers, not a base and a stride, is what lets a later
 // version address blocks that live on other cards.
 //

@@ -5,9 +5,11 @@ The counterpart of ``mpi4jax_tpu/ops/pallas_collectives.py``.  Three
 kernels carry every function here:
 
 - ``hop`` (``csrc/hop.cu``): k payloads, each rank's block of payload i
-  copied to rank ``dst[r][i]``, in one launch.  ``ring_shift``,
-  ``ring_shift2`` (the halo), ``exchange`` (the butterfly), the hop-composed
-  ``all_gather`` and ``reduce_scatter_sum`` are built from it, as on the TPU;
+  copied to rank ``dst[r][i]``, in one launch (several past ``MAX_PAIRS``
+  (rank, payload) pairs).  ``ring_shift``, ``ring_shift2`` (the halo),
+  ``ring_shift_n`` (ring attention's k/v rotation), ``exchange`` (the
+  butterfly), the hop-composed ``all_gather`` and ``reduce_scatter_sum``
+  are built from it, as on the TPU;
 - ``fused_ring_allreduce_sum`` (``csrc/fused_ring.cu``): the whole ring
   allreduce in one launch, bit for bit ``topo.simulate_ring_sum``;
 - ``alltoall`` (``csrc/alltoall.cu``): every rank's n rows to their
@@ -46,7 +48,8 @@ from .. import _build
 
 LAUNCHES = {"hop": 0, "fused_ring": 0, "alltoall": 0}  # read by chip_smoke
 
-MAX_PAIRS = 64  # (rank, payload) pairs of one hop launch: csrc/hop.cu
+MAX_PAIRS = 64  # (rank, payload) pairs of one hop launch: csrc/hop.cu;
+# a hop of more pairs takes several launches
 
 # Below this many elements per rank the allreduce is latency-bound and takes
 # the butterfly: log2(n) full-payload exchanges (power-of-two n only).
@@ -165,9 +168,9 @@ def hop_plain(xs, dst):
 
 def _hop_kernel(xs, dst):
     n = len(dst)
-    # the contiguous inputs stay referenced until the launch is enqueued
+    # the contiguous inputs stay referenced until the launches are enqueued
     xs = [x.contiguous() for x in xs]
-    srcs, dsts, nbytes, outs = [], [], [], []
+    pairs, outs = [], []
     for i, x in enumerate(xs):
         out = (torch.empty_like(x) if _bijective(dst, i)
                else torch.zeros_like(x))
@@ -178,22 +181,29 @@ def _hop_kernel(xs, dst):
         for r in range(n):
             d = dst[r][i]
             if d is not None:
-                srcs.append(x.data_ptr() + r * block)
-                dsts.append(out.data_ptr() + d * block)
-                nbytes.append(block)
-    if not srcs:
-        return tuple(outs)
-    if len(srcs) > MAX_PAIRS:
-        raise ValueError(
-            f"a hop of {len(srcs)} (rank, payload) pairs; one launch takes "
-            f"at most {MAX_PAIRS}")
+                pairs.append((x.data_ptr() + r * block,
+                              out.data_ptr() + d * block, block))
+    if pairs:
+        # one launch's parameter table holds MAX_PAIRS pairs: a larger hop
+        # takes the fewest launches that hold it, of near-equal size, in
+        # order on one stream (the pairs write disjoint blocks)
+        launches = -(-len(pairs) // MAX_PAIRS)
+        per = -(-len(pairs) // launches)
+        for lo in range(0, len(pairs), per):
+            _hop_launch(pairs[lo:lo + per], xs[0].device)
+    return tuple(outs)
+
+
+def _hop_launch(pairs, dev):
+    """One launch of ``csrc/hop.cu`` over at most ``MAX_PAIRS`` (source,
+    target, bytes) pairs."""
     lib = _build.library("hop")
     fn = lib.hop_launch
     if fn.argtypes is None:  # declared once per loaded library
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    m = len(srcs)
-    dev = xs[0].device
+    m = len(pairs)
+    srcs, dsts, nbytes = zip(*pairs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     src_arr = (ctypes.c_ulonglong * m)(*srcs)
     dst_arr = (ctypes.c_ulonglong * m)(*dsts)
@@ -204,7 +214,6 @@ def _hop_kernel(xs, dst):
     if err != 0:
         raise RuntimeError(f"hop_launch failed: {_build.error_string(lib, err)}")
     LAUNCHES["hop"] += 1
-    return tuple(outs)
 
 
 def _hop_impl(xs, dst):
@@ -280,6 +289,17 @@ def ring_shift2(a, b, comm):
     ``b`` left; returns ``(a', b')``, ``a'`` the left neighbour's ``a`` and
     ``b'`` the right neighbour's ``b``."""
     return tuple(_Hop.apply(_shifts(comm, 1, -1), a, b))
+
+
+def ring_shift_n(xs, comm, shift: int = 1):
+    """k payloads one ring hop together, in one launch: each rank receives
+    the blocks of comm rank ``me - shift`` (ring attention's k/v
+    rotation).  ``shift == 0`` returns the inputs.  Differentiable: the
+    gradient is the reverse shift."""
+    xs = tuple(xs)
+    if shift == 0:
+        return xs
+    return tuple(_Hop.apply(_shifts(comm, *(shift,) * len(xs)), *xs))
 
 
 def exchange(x, comm, partners):

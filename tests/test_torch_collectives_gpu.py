@@ -14,7 +14,7 @@ keeps the association of its plain version (``topo.simulate_ring_sum``'s).
 import pytest
 import torch
 
-from mpi4jax_tpu_torch import allreduce, make_mesh
+from mpi4jax_tpu_torch import allreduce, halo_exchange, make_mesh
 from mpi4jax_tpu_torch.ops import _collectives as coll
 from mpi4jax_tpu_torch.parallel.grid import ProcessGrid
 
@@ -118,3 +118,31 @@ def test_allreduce_arms_on_the_card(cuda, n, count):
     assert got.grad_fn is not None
     got.sum().backward()
     assert torch.equal(x.grad, torch.full_like(x, float(n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 65])
+def test_hop_past_64_pairs_matches_plain(cuda, n):
+    """One hop launch holds 64 (rank, payload) pairs; a larger hop takes
+    several launches, and a hop of 64 or fewer stays one."""
+    comm = make_mesh(n, device=cuda)
+    x = _rand((n, 37), torch.float32, cuda, n)
+    y = _rand((n, 5), torch.bfloat16, cuda, n + 1)
+    before = coll.LAUNCHES["hop"]
+    _vs_plain(coll.ring_shift, x, comm, 1)
+    assert coll.LAUNCHES["hop"] == before + (1 if n <= 64 else 2)
+    before = coll.LAUNCHES["hop"]
+    _vs_plain(coll.ring_shift_n, (x, y), comm, 1)
+    assert coll.LAUNCHES["hop"] == before + -(-2 * n // 64)
+    _vs_plain(coll.ring_shift_n, (x, y), comm, -3)
+    _vs_plain(coll.ring_shift2, x, y, comm)
+    _vs_plain(lambda v: allreduce(v, comm=comm), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 6), (8, 8)])
+def test_halo_exchange_on_large_grids(cuda, shape):
+    grid = ProcessGrid(shape, device=cuda)
+    f = _rand(shape + (3, 10, 12), torch.float32, cuda, 5)
+    for periodic in (True, False):
+        _vs_plain(lambda g: halo_exchange(g, grid, periodic=periodic), f)
