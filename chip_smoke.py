@@ -72,7 +72,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    shapes of ``mpi4jax_tpu_torch/ops/_flash_check.py``: f32, bf16 and fp16,
    D = 16, 32, 64 and 128, causal and not, offsets (0, 0), (64, 0),
    (16, 32), a fully skipped block and per-row offsets, ragged T, each
-   within ``_flash_check.TOL``;
+   within ``_flash_check.TOL``: the normalized output's error in each
+   component over that component's noise scale (``_flash_check.noise``),
+   between the readings of the sound kernel and of planted faults
+   (``mpi4jax_tpu_torch.benchmarks.flash_tolerance``);
 16. the hop past 64 (rank, payload) pairs, bit for bit against the plain
    route: ``ring_shift``, ``ring_shift_n`` and the allreduce on 64 and 65
    ranks, and ``halo_exchange`` on 6x6 and 8x8 grids; a hop of 64 pairs or
@@ -81,9 +84,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ring_attention``) at B4 T4096 H16 D128 bf16 causal over n = 1 and 4
    ranks on the card (one warm-up, then 5 timed forwards), the counters
    reset just before each run and read just after: n flash launches and
-   n - 1 hops per forward; the output finite, within
-   ``_flash_check.RING_TOL`` of the plain route's, and the n = 4 output
-   near the n = 1 output; the card's time per forward by kernel group
+   n - 1 hops per forward; the output finite and the cast of the f32
+   output, which is held to the plain route's f32 output over each
+   component's noise scale (``_flash_check.ring_noise``) within
+   ``_flash_check.TOL``, as is the n = 4 output to the n = 1 output; the
+   card's time per forward by kernel group
    (``torch.profiler``); kernel 5's time per launch at n = 1 and at each
    of the four ring steps of n = 4, each beside its bound and each held to
    the plain version at that shape; the plain version's time and
@@ -710,7 +715,8 @@ def check_flash(dev, on_card):
         sync(dev)
         ref = flash.flash_fwd_block_plain(q, k, v, qo, ko, scale=scale,
                                           causal=causal)
-        errs = flash_chk.errors(got, ref, v)
+        noise = flash_chk.noise(q, k, v, qo, ko, scale=scale, causal=causal)
+        errs = flash_chk.errors(got, ref, noise)
         if not flash_chk.within(errs, q.dtype):
             fail(f"kernel 5 {tag}: {errs} (tolerance "
                  f"{flash_chk.TOL[q.dtype]})")
@@ -720,8 +726,9 @@ def check_flash(dev, on_card):
             w[key] = max(w[key], errs[key])
         cases += 1
     for name, w in worst.items():
-        log(f"  {name}: worst o {w['o']:.3e}, l {w['l']:.3e}, m {w['m']:.3e} "
-            f"(normalized), |o - o_plain| {w['max_abs_err']:.3e}")
+        log(f"  {name}: worst o {w['o']:.3e} (of the noise scale), l "
+            f"{w['l']:.3e}, m {w['m']:.3e}; |o/l - plain| "
+            f"{w['max_abs_err']:.3e}")
     log(f"  {cases} cases within _flash_check.TOL, rows that see no key "
         "exactly empty")
     return worst, cases
@@ -789,9 +796,12 @@ def flash_launch(dev, qf, kf, vf, offs, t, reps, plain_reps):
         plain_ms = time_ms(lambda: flash.flash_fwd_block_plain(
             qf, kf, vf, offs[:, 0], offs[:, 1], scale=1.0, causal=True),
             plain_reps)
-    errs = flash_chk.errors(got, ref, vf)
+    noise = flash_chk.noise(qf, kf, vf, offs[:, 0], offs[:, 1], scale=1.0,
+                            causal=True)
+    errs = flash_chk.errors(got, ref, noise)
     if not flash_chk.within(errs, qf.dtype):
-        fail(f"kernel 5 at the path's shape {tuple(qf.shape)}: {errs}")
+        fail(f"kernel 5 at the path's shape {tuple(qf.shape)}: {errs} "
+             f"(tolerance {flash_chk.TOL[qf.dtype]})")
     pairs, live_rows = visible_pairs(offs, t)
     op_ms = 4 * d * pairs / BF16_FLOPS_PER_S * 1e3
     in_bytes = 3 * live_rows * t * d * qf.element_size()
@@ -809,8 +819,7 @@ def path_d(dev, on_card, card):
     shape = FLASH_SHAPE if on_card else (1, 64, 2, 16)
     b, t, h, d = shape
     qkv = ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=0)
-    vmax = qkv[2].float().abs().max().item()
-    tol = flash_chk.RING_TOL[torch.bfloat16]
+    tol = flash_chk.TOL[torch.bfloat16]["o"]
     runs, outs = [], {}
     total = 0
     for n in FLASH_RANKS:
@@ -829,11 +838,24 @@ def path_d(dev, on_card, card):
                 torch.isfinite(out).all()):
             fail(f"path (d) n={n}: the output has shape {tuple(out.shape)} "
                  "or is not finite")
-        if not rec["max_abs_diff"] <= tol * vmax:
-            fail(f"path (d) n={n}: {rec['max_abs_diff']:.3e} from the plain "
-                 f"route, past {tol} x max|v| = {tol * vmax:.3e}")
-        outs[n] = ring_bench.unshard(out).float()
-        rec.update(flash_launches=launches, hop_launches=hops)
+        # the f32 output before its cast, against the plain route's, over
+        # each component's noise scale (launches after the counts are read)
+        comm = make_mesh(n, device=dev)
+        q, k, v = (ring_bench.shard(x, n) for x in qkv)
+        got, ref = flash_chk.ring_outputs(q, k, v, comm, True)
+        noise = flash_chk.ring_noise(q, k, v, comm, True)
+        err = flash_chk.scaled_error(got, ref, noise)
+        if not err <= tol:
+            fail(f"path (d) n={n}: the f32 output {err:.3e} of its noise "
+                 f"scale from the plain route's, past {tol}")
+        if not torch.equal(got.to(torch.bfloat16), out):
+            fail(f"path (d) n={n}: the entry point's output is not the f32 "
+                 "output cast")
+        outs[n] = ring_bench.unshard(got)
+        if n == FLASH_RANKS[0]:
+            noise_1 = ring_bench.unshard(noise)
+        del q, k, v, got, ref, noise
+        rec.update(flash_launches=launches, hop_launches=hops, o_error=err)
         runs.append(rec)
         tflops = (f"{rec['tflops']:.1f} TFLOP/s" if rec["tflops"] is not None
                   else "no rate (CPU)")
@@ -841,8 +863,8 @@ def path_d(dev, on_card, card):
             f"{FLASH_ITERS} after a warm-up), {tflops}; {launches} flash and "
             f"{hops} hop launches in {forwards} forwards; plain route "
             f"{rec['plain_ms']:.4f} ms; |out - plain route| "
-            f"{rec['max_abs_diff']:.3e} (tolerance {tol} x max|v| "
-            f"{vmax:.3f}) [{card}]")
+            f"{rec['max_abs_diff']:.3e}; f32 output {err:.3e} of its noise "
+            f"scale from the plain route's (tolerance {tol}) [{card}]")
         if on_card:
             prof = ring_bench.device_profile(shape, n, device=dev, qkv=qkv)
             rec["profile"] = prof
@@ -852,22 +874,23 @@ def path_d(dev, on_card, card):
                 f"({prof['busy_share']:.3f}), by group "
                 + ", ".join(f"{k} {v:.4f}" for k, v in
                             prof["ms_per_forward_by_group"].items()))
-    gap = (outs[FLASH_RANKS[0]] - outs[FLASH_RANKS[-1]]).abs().max().item()
-    if not gap <= 2 * tol * vmax:
+    gap = flash_chk.scaled_error(outs[FLASH_RANKS[-1]], outs[FLASH_RANKS[0]],
+                                 noise_1)
+    if not gap <= tol:
         fail(f"path (d): n={FLASH_RANKS[-1]} and n={FLASH_RANKS[0]} differ "
-             f"by {gap:.3e}")
-    log(f"  |out(n={FLASH_RANKS[-1]}) - out(n={FLASH_RANKS[0]})| {gap:.3e}")
+             f"by {gap:.3e} of the noise scale, past {tol}")
+    log(f"  f32 out(n={FLASH_RANKS[-1]}) against out(n={FLASH_RANKS[0]}): "
+        f"{gap:.3e} of the noise scale")
     if not on_card:
         return runs, total, None
 
     # kernel 5 per launch: the whole forward at n = 1, each step at n = 4,
     # on the path's own prescaled q
-    scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.bfloat16).item()
     steps = {}
     for n in FLASH_RANKS:
         comm = make_mesh(n, device=dev)
         qf, kf, vf = (flash._to_bhtd(ring_bench.shard(x, n)) for x in qkv)
-        qf = qf * scale
+        qf = flash.prescale(qf)
         offs = flash._ring_offsets(comm, b * h, t // n, dev)
         steps[n] = []
         for i in range(n):
@@ -880,7 +903,7 @@ def path_d(dev, on_card, card):
                 f"{row['op_ms']:.4f}, bytes {row['mem_ms']:.4f}), "
                 f"{row['bound_ms'] / row['ms']:.3f} of it; plain "
                 f"{row['plain_ms']:.4f} ms; o error {row['errors']['o']:.2e} "
-                f"of l max|v|")
+                f"of the noise scale")
         del qf, kf, vf
     q, k, v = (x.transpose(1, 2).contiguous() for x in qkv)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1118,6 +1141,9 @@ def main(argv=None):
         "max_abs_err": max(r["errors"]["max_abs_err"]
                            for rows in d_times["steps"].values()
                            for r in rows),
+        "o_error_of_noise": max(r["errors"]["o"]
+                                for rows in d_times["steps"].values()
+                                for r in rows),
         "ok": True, "ms": whole["ms"], "plain_ms": whole["plain_ms"],
         "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
         "library_ms": d_times["library_ms"],

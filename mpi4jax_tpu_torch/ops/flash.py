@@ -47,14 +47,6 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PLAIN_CHUNK = 1 << 26
 
 
-def pick_block(t: int, preferred: int) -> int:
-    """Largest divisor of ``t`` that is <= preferred."""
-    b = min(preferred, t)
-    while t % b:
-        b -= 1
-    return b
-
-
 def _to_bhtd(x):
     """``(*lead, T, H, D)`` as ``(prod(lead) * H, T, D)``: each (leading
     index, head) pair is one batch row, rank-major on the mesh layout."""
@@ -79,27 +71,17 @@ def _offsets(off, bh, device):
     return off.expand(bh) if off.numel() == 1 else off.reshape(bh)
 
 
-def flash_fwd_block_plain(q, k, v, q_off, k_off, *, scale, causal):
-    """The plain version of one ring step's partial attention.
-
-    q: ``(BH, Tq, D)``; k, v: ``(BH, Tk, D)``; ``q_off`` and ``k_off``: the
-    global positions of q's and k's first rows, one per batch row (int
-    tensors; one element broadcasts).  Returns float32
-    ``(o (BH, Tq, D), m (BH, Tq, 1), l (BH, Tq, 1))``: o the unnormalized
-    output, m the row maximum of the scores, l the sum of exp(s - m).
-    """
-    bh, tq, d = q.shape
+def _plain_chunks(q, k, q_off, k_off, *, scale, causal):
+    """The plain version's probabilities by chunks of q rows (non-empty
+    inputs): yields ``(lo, hi, p, m)``, p the f32 ``exp(s - m)`` of rows
+    ``lo:hi`` ``(BH, hi - lo, Tk)``, 0 where masked, and m their maxima
+    ``(BH, hi - lo, 1)``."""
+    bh, tq, _ = q.shape
     tk = k.shape[1]
     dev = q.device
-    o = torch.zeros((bh, tq, d), dtype=torch.float32, device=dev)
-    m = torch.full((bh, tq, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((bh, tq, 1), dtype=torch.float32, device=dev)
-    if bh == 0 or tq == 0 or tk == 0:
-        return o, m, l
     qo = _offsets(q_off, bh, dev).long()
     ko = _offsets(k_off, bh, dev).long()
     kt = k.float().transpose(1, 2)
-    vf = v.float()
     cols = ko[:, None] + torch.arange(tk, device=dev)  # (BH, Tk)
     step = max(1, _PLAIN_CHUNK // (bh * tk))
     for lo in range(0, tq, step):
@@ -118,6 +100,28 @@ def flash_fwd_block_plain(q, k, v, q_off, k_off, *, scale, causal):
         if causal:
             # a row that sees no key contributes nothing (m stays NEG_INF)
             p = torch.where(seen, p, 0.0)
+        yield lo, hi, p, mc
+
+
+def flash_fwd_block_plain(q, k, v, q_off, k_off, *, scale, causal):
+    """The plain version of one ring step's partial attention.
+
+    q: ``(BH, Tq, D)``; k, v: ``(BH, Tk, D)``; ``q_off`` and ``k_off``: the
+    global positions of q's and k's first rows, one per batch row (int
+    tensors; one element broadcasts).  Returns float32
+    ``(o (BH, Tq, D), m (BH, Tq, 1), l (BH, Tq, 1))``: o the unnormalized
+    output, m the row maximum of the scores, l the sum of exp(s - m).
+    """
+    bh, tq, d = q.shape
+    dev = q.device
+    o = torch.zeros((bh, tq, d), dtype=torch.float32, device=dev)
+    m = torch.full((bh, tq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, tq, 1), dtype=torch.float32, device=dev)
+    if bh == 0 or tq == 0 or k.shape[1] == 0:
+        return o, m, l
+    vf = v.float()
+    for lo, hi, p, mc in _plain_chunks(q, k, q_off, k_off, scale=scale,
+                                       causal=causal):
         m[:, lo:hi] = mc
         l[:, lo:hi] = p.sum(-1, keepdim=True)
         # p rounded to v's dtype, then products summed in f32
@@ -224,8 +228,8 @@ def _ring_forward(q, k, v, comm, causal, scale):
     ``(*lead, B, T, H, D)``: n steps of one block launch each (covering
     every rank), the ``(o, m, l)`` combine in plain torch, and n - 1 hops of
     k and v between them (the JAX scan's n-th hop returns blocks nobody
-    reads).  Returns the output in q's dtype and the f32 logsumexp
-    ``(R, T, 1)``."""
+    reads).  Returns the normalized output in float32, before its cast to
+    q's dtype, and the f32 logsumexp ``(R, T, 1)``."""
     lead = comm.layout_shape
     t, h, d = q.shape[-3:]
     n = comm.size()
@@ -253,16 +257,25 @@ def _ring_forward(q, k, v, comm, causal, scale):
         if i < n - 1:
             k_cur, v_cur = _collectives.ring_shift_n((k_cur, v_cur), comm, 1)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = (o / l_safe).to(q.dtype)
     lse = m + torch.log(l_safe)
-    return _from_bhtd(out, q.shape[:-3], h), lse
+    return _from_bhtd(o.div_(l_safe), q.shape[:-3], h), lse
+
+
+def prescale(q, scale=None):
+    """q times the scale (default ``1/sqrt(D)``), the scale rounded to q's
+    dtype and the product rounded once, as the JAX package's
+    ``q * jnp.asarray(scale, q.dtype)``; the kernels then take scale 1.
+    The rounding changes bf16 results."""
+    scale = 1.0 / q.shape[-1] ** 0.5 if scale is None else float(scale)
+    return q if scale == 1.0 else q * torch.tensor(scale,
+                                                   dtype=q.dtype).item()
 
 
 class _RingFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, comm, causal, scale):
-        out, _ = _ring_forward(q, k, v, comm, causal, scale)
-        return out
+    def forward(ctx, q, k, v, comm, causal):
+        out, _ = _ring_forward(q, k, v, comm, causal, 1.0)
+        return out.to(q.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -294,32 +307,20 @@ def check_qkv(q, k, v, comm):
 
 
 def ring_flash_attention(q, k, v, *, comm=None, causal=False, scale=None,
-                         block_q=1024, block_k=1024, prescale_q=True):
+                         block_q=1024, block_k=1024):
     """Ring attention with kernel 5 for the local blocks.
 
     q, k and v are ``(*lead, B, T_local, H, D)`` on the mesh layout of
     ``comm`` (its rank dimensions leading), the sequence split over the
     comm's ranks in rank order.  Returns the exact attention output, in q's
     dtype.  Not differentiable yet: its backward raises
-    ``NotImplementedError``.
+    ``NotImplementedError``.  q is multiplied by the scale in q's dtype
+    before the kernels, as the JAX package does (``prescale``).
 
-    ``block_q`` and ``block_k`` are clamped to divisors of ``T_local`` as in
-    the JAX package, for its API; the CUDA kernel uses its own tile of 64 x
-    64, because a block's shared memory holds 227 KB, not the TPU's 100 MB
-    of VMEM.  ``prescale_q`` multiplies q by the scale in q's dtype before
-    the kernels, as the JAX package does; that rounding changes bf16
-    results.
+    ``block_q`` and ``block_k`` are the JAX package's tile sizes, accepted
+    for its API and ignored: the CUDA kernel uses its own tile of 64 x 64,
+    because a block's shared memory holds 227 KB, not the TPU's 100 MB of
+    VMEM.
     """
     comm = check_qkv(q, k, v, comm)
-    t, d = q.shape[-3], q.shape[-1]
-    pick_block(t, block_q)
-    pick_block(t, block_k)
-    if scale is None:
-        scale = 1.0 / d ** 0.5
-    scale = float(scale)
-    if scale != 1.0 and prescale_q:
-        # the scale rounded to q's dtype, the product rounded once, as
-        # JAX's q * jnp.asarray(scale, q.dtype)
-        q = q * torch.tensor(scale, dtype=q.dtype).item()
-        scale = 1.0
-    return _RingFlash.apply(q, k, v, comm, bool(causal), scale)
+    return _RingFlash.apply(prescale(q, scale), k, v, comm, bool(causal))

@@ -32,9 +32,12 @@ def ring_attention(q, k, v, *, comm=None, causal: bool = False, scale=None,
             the einsum recurrence below in plain torch, differentiable
             through torch autograd and the hop's backward; ``"auto"``:
             the flash route on a CUDA tensor, the recurrence on a CPU
-            tensor or with a tensor ``scale``.
-        block_q, block_k: the JAX package's tile sizes, clamped to divisors
-            of ``T_local`` (the CUDA kernel uses its own tile).
+            tensor.  A tensor ``scale`` on a CUDA tensor needs
+            ``impl="xla"`` by name: ``"auto"`` raises rather than put the
+            recurrence, which holds every step's full score matrix, in
+            kernel 5's place.
+        block_q, block_k: the JAX package's tile sizes, accepted for its
+            API and ignored (the CUDA kernel uses its own tile).
 
     Returns:
         ``(*lead, B, T_local, H, D)`` attention output, sharded like q.
@@ -43,21 +46,22 @@ def ring_attention(q, k, v, *, comm=None, causal: bool = False, scale=None,
         raise ValueError(f"unknown ring attention impl {impl!r}")
     comm = check_qkv(q, k, v, comm)
     scale_tensor = isinstance(scale, torch.Tensor)
+    on_card = q.device.type == "cuda"
     if impl == "auto":
-        impl = ("pallas" if q.device.type == "cuda" and not scale_tensor
-                else "xla")
+        if on_card and scale_tensor:
+            raise ValueError(
+                "ring_attention on a CUDA tensor with a tensor scale: pass "
+                "impl='xla' to run the plain recurrence (no kernel; it "
+                "holds each step's full score matrix), or a float scale for "
+                "the flash route")
+        impl = "pallas" if on_card else "xla"
     if impl == "pallas":
         if scale_tensor:
             raise ValueError(
                 "impl='pallas' needs a Python float scale; got a tensor "
                 "(use impl='xla' for a learnable scale)")
-        kw = {}
-        if block_q is not None:
-            kw["block_q"] = block_q
-        if block_k is not None:
-            kw["block_k"] = block_k
         return ring_flash_attention(q, k, v, comm=comm, causal=causal,
-                                    scale=scale, **kw)
+                                    scale=scale)
     return _ring_recurrence(q, k, v, comm, causal, scale)
 
 

@@ -30,6 +30,7 @@ from mpi4jax_tpu.parallel.ring import ring_attention as jax_ring_attention
 import mpi4jax_tpu_torch as mt
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.ops import _collectives as coll
+from mpi4jax_tpu_torch.ops import _flash_check as chk
 from mpi4jax_tpu_torch.ops import flash
 from mpi4jax_tpu_torch.parallel.ring import ring_attention
 
@@ -118,8 +119,6 @@ def test_block_dispatch_and_kernel_checks():
                                 scale=1.0, causal=False)
     with pytest.raises(ValueError, match="one card"):
         flash._flash_fwd_kernel(q, k, v, pairs, scale=1.0, causal=False)
-    assert flash.pick_block(256, 128) == 128
-    assert flash.pick_block(48, 32) == 24
 
 
 # -- the ring against the JAX ring --------------------------------------------
@@ -227,6 +226,58 @@ def test_benchmark_runs_on_the_cpu():
     assert rec["tflops"] is None and rec["device"] == "cpu"
     assert rec["max_abs_diff"] == 0.0
     assert rec["flash_launches_per_forward"] == 0.0
+
+
+# -- the check that holds kernel 5 to its plain version ----------------------
+
+def _in_two(q, k, v, cut, resume):
+    """One causal block as two, keys ``[0, cut)`` and ``[resume, Tk)``,
+    combined as the ring combines its steps: p rounded against each part's
+    maximum, as kernel 5's running maximum rounds it; ``resume > cut``
+    drops the keys between."""
+    kw = dict(scale=1.0, causal=True)
+    o1, m1, l1 = flash.flash_fwd_block_plain(q, k[:, :cut], v[:, :cut], 0,
+                                             0, **kw)
+    o2, m2, l2 = flash.flash_fwd_block_plain(q, k[:, resume:], v[:, resume:],
+                                             0, resume, **kw)
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    return o1 * a1 + o2 * a2, m, l1 * a1 + l2 * a2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_check_passes_rounding_and_catches_a_dropped_tile(dtype):
+    """The o error over the noise scale passes p rounded against another
+    maximum and fails a block that lost one 64-key tile, in the rows past
+    it only, even when l is right."""
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(4, 512, 64).astype(np.float32))
+               .to(dtype) for _ in range(3))
+    q = flash.prescale(q)
+    ref = flash.flash_fwd_block_plain(q, k, v, 0, 0, scale=1.0, causal=True)
+    noise = chk.noise(q, k, v, 0, 0, scale=1.0, causal=True)
+    sound = chk.errors(_in_two(q, k, v, 256, 256), ref, noise)
+    assert chk.within(sound, dtype) and sound["o"] > 0, sound
+    o, m, l = _in_two(q, k, v, 448, 512)
+    assert not chk.within(chk.errors((o, m, l), ref, noise), dtype)
+    late = (o, m, ref[2])  # rows past key 448 only, l left right
+    errs = chk.errors(late, ref, noise)
+    assert errs["l"] == 0.0 and errs["o"] > 3 * chk.TOL[dtype]["o"], errs
+
+
+def test_ring_noise_is_the_global_blocks_noise():
+    comm = mt.make_mesh(N, device="cpu")
+    q, k, v = (torch.from_numpy(x) for x in _ring_inputs(3))
+    sharded = [ring_bench.shard(x, N) for x in (q, k, v)]
+    noise = chk.ring_noise(*sharded, comm, True)
+    got = ring_bench.unshard(noise)
+    qf, kf, vf = (flash._to_bhtd(x) for x in (flash.prescale(q), k, v))
+    want = flash._from_bhtd(chk.noise(qf, kf, vf, 0, 0, scale=1.0,
+                                      causal=True), (B,), H)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    out, ref = chk.ring_outputs(*sharded, comm, True)
+    assert torch.equal(out, ref)  # both plain on the CPU
+    assert chk.scaled_error(out, ref, noise) == 0.0
 
 
 # -- the k/v rotation ---------------------------------------------------------
