@@ -6,9 +6,10 @@
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. the card's name and power limit; build the five kernels of
-   ``mpi4jax_tpu_torch/csrc/`` with nvcc, one process each, all started
-   together, and print the fused step's build time and ptxas lines;
+1. the card's name and power limit; build the six sources of
+   ``mpi4jax_tpu_torch/csrc/`` (seven kernels) with nvcc, one process each,
+   all started together, and print the fused step's build time and ptxas
+   lines;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
    the Euler step from a check state (the initial jet with seeded
    grid-scale noise), and fuse=1 and fuse=3 from that state after two plain
@@ -92,12 +93,41 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (``torch.profiler``); kernel 5's time per launch at n = 1 and at each
    of the four ring steps of n = 4, each beside its bound and each held to
    the plain version at that shape; the plain version's time and
-   ``scaled_dot_product_attention(is_causal=True)``'s on the same tensors.
+   ``scaled_dot_product_attention(is_causal=True)``'s on the same tensors;
+18. the build of kernels 6 and 7, the flash backward (``csrc/flash_bwd.cu``):
+   ptxas lines (registers and spills of each instantiation);
+19. kernels 6 and 7 against ``flash_bwd_block_plain`` at the edge cases of
+   ``_flash_check.bwd_cases`` (the forward's, with dO, lse and delta): f32,
+   bf16 and fp16, D = 16, 32, 64 and 128, each gradient within
+   ``_flash_check.TOL_BWD`` of its noise scale (``bwd_noise``);
+20. path (e): ring attention's forward and backward
+   (``benchmarks.ring_attention.run_backward``) at B4 T4096 H16 D128 bf16
+   causal over n = 1 and 4 (one warm-up, then 3 timed steps), the counters
+   reset just before each run and read just after: n launches each of
+   kernels 5, 6 and 7 per step, n - 1 hops in the forward and n in the
+   backward (none at n = 1); the gradients finite, the f32 gradients held
+   to the plain route's over ``ring_bwd_noise`` within ``TOL_BWD``, and the
+   entry point's dq, dk and dv their cast (``run_backward``'s check); the profiler's breakdown; kernels 6
+   and 7 per launch at n = 1 and each step of n = 4, beside their bounds
+   and the plain version's time, held to it; SDPA's forward and
+   forward+backward time on the same tensors;
+21. path (f): the GPT-2 124M train step (``benchmarks.gpt_step``, bf16,
+   B8 T1024) on the (1, 1, 1) and (1, 2, 2) meshes (one warm-up step, then
+   3 timed), the counters reset just before each run and read just after:
+   12 (24 at (1, 2, 2)) launches each of kernels 5, 6 and 7 per step, finite
+   losses; the profiler's top groups; one step on the kernel route against
+   one on the plain route from the same weights
+   (``benchmarks.gpt_step.route_check``: the loss, each field's gradient
+   and its AdamW update within ``ROUTE_TOL``, relative L2); kernels 5, 6
+   and 7 per launch at each mesh's attention shapes (B8 x 12 heads of T1024
+   at (1, 1, 1); both ring steps of 192 rows of T512 at (1, 2, 2)), each
+   held to its plain version within ``TOL`` or ``TOL_BWD``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
-no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13 and 15-17 on the
-CPU through the plain versions at a small size and prints no result line.
+no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17 and 19-21
+on the CPU through the plain versions at a small size and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -109,16 +139,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
+from mpi4jax_tpu_torch.benchmarks import gpt_step as gpt_bench
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import spectral
+from mpi4jax_tpu_torch.models import transformer as gpt
 from mpi4jax_tpu_torch.ops import _collectives as coll
 from mpi4jax_tpu_torch.ops import _flash_check as flash_chk
 from mpi4jax_tpu_torch.ops import _mesh_impl, flash
@@ -135,7 +168,8 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # fluxes/q/ke 30, tendencies and Adams-Bashforth 48, viscous fluxes 12,
 # viscous update 14
 FLOPS_PER_CELL_STEP = 104
-KERNELS = ("sw_step", "hop", "fused_ring", "alltoall", "flash_fwd")
+KERNELS = ("sw_step", "hop", "fused_ring", "alltoall", "flash_fwd",
+           "flash_bwd")
 HOP_DTYPES = (torch.float32, torch.float64, torch.int32, torch.bfloat16,
               torch.complex64, torch.uint8)
 HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
@@ -163,6 +197,10 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores, published
 FLASH_SHAPE = (4, 4096, 16, 128)
 FLASH_RANKS = (1, 4)
 FLASH_ITERS = 5
+# path (e): path (d)'s shape, forward and backward (bench_flash_mfu's second
+# half); path (f): bench.py's bench_gpt2_step (GPT-2 124M, B8 T1024 bf16)
+BWD_ITERS = 3
+GPT_STEPS = 3
 
 
 def log(msg=""):
@@ -225,11 +263,34 @@ def log_build(name, build_secs):
             log(f"  {name}: {line.strip()}")
 
 
+def log_registers(name):
+    """Each kernel's registers and spills from ptxas's lines, one line per
+    instantiation."""
+    fn = None
+    for line in _build.LOGS.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            # the kernel's name and its template arguments, unmangled enough
+            fn = next(p for p in ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+                                  "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                                  mangled) if p in mangled)
+            fn += " " + ("bf16" if "bfloat16" in mangled else "fp16"
+                         if "half" in mangled else "f32")
+            fn += " D=" + mangled.split("Li")[-1].split("E")[0]
+            spills = ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            log(f"  {name}: {fn}: {line.split(':', 1)[1].strip()}; {spills}")
+            fn = None
+
+
 def reset_counts():
     kernel.LAUNCHES = 0
     for k in coll.LAUNCHES:
         coll.LAUNCHES[k] = 0
-    flash.LAUNCHES["flash_fwd"] = 0
+    for k in flash.LAUNCHES:
+        flash.LAUNCHES[k] = 0
 
 
 def bits_equal(a, b):
@@ -917,6 +978,307 @@ def path_d(dev, on_card, card):
                              library_gap=lib_gap, n_gap=gap)
 
 
+def check_flash_bwd(dev, on_card):
+    """Phase 19: kernels 6 and 7 against flash_bwd_block_plain at the edge
+    cases; returns the worst errors by dtype and the case count."""
+    head_dims = flash_chk.HEAD_DIMS if on_card else (16,)
+    worst = {}
+    cases = 0
+    for (tag, q, k, v, do, lse, delta, qo, ko, scale,
+         causal) in flash_chk.bwd_cases(dev, head_dims=head_dims):
+        args = (q, k, v, do, lse, delta, qo, ko)
+        got = flash.flash_bwd_block(*args, scale=scale, causal=causal)
+        sync(dev)
+        ref = flash.flash_bwd_block_plain(*args, scale=scale, causal=causal)
+        noise = flash_chk.bwd_noise(*args, scale=scale, causal=causal)
+        errs = flash_chk.bwd_errors(got, ref, noise)
+        if not flash_chk.within_bwd(errs, q.dtype):
+            fail(f"kernels 6 and 7 {tag}: {errs} (tolerance "
+                 f"{flash_chk.TOL_BWD[q.dtype]})")
+        w = worst.setdefault(str(q.dtype)[6:], dict.fromkeys(
+            ("dq", "dk", "dv", "max_abs_err"), 0.0))
+        for key in w:
+            w[key] = max(w[key], errs[key])
+        cases += 1
+    for name, w in worst.items():
+        log(f"  {name}: worst dq {w['dq']:.3e}, dk {w['dk']:.3e}, dv "
+            f"{w['dv']:.3e} (of the noise scale); max |diff| "
+            f"{w['max_abs_err']:.3e}")
+    log(f"  {cases} cases within _flash_check.TOL_BWD, components without a "
+        "term exactly 0")
+    return worst, cases
+
+
+def bwd_launches(dev, qf, kf, vf, dof, lse, delta, offs, t, reps,
+                 plain_reps):
+    """Kernels 6 and 7's times per launch on one ring step's inputs, each
+    beside its bound, the plain version's time (both kernels' work), and
+    the pair held to the plain version at that shape."""
+    rows, _, d = qf.shape
+    args = (qf, kf, vf, dof, lse, delta, offs)
+    kw = dict(scale=1.0, causal=True)
+    ms6 = time_ms(lambda: flash._flash_bwd_dq_kernel(*args, **kw), reps)
+    ms7 = time_ms(lambda: flash._flash_bwd_dkv_kernel(*args, **kw), reps)
+    got = flash.flash_bwd_block(*args[:6], offs[:, 0], offs[:, 1], **kw)
+    plain = (*args[:6], offs[:, 0], offs[:, 1])
+    t0 = time.perf_counter()
+    ref = flash.flash_bwd_block_plain(*plain, **kw)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if plain_reps > 1:
+        plain_ms = time_ms(lambda: flash.flash_bwd_block_plain(*plain, **kw),
+                           plain_reps)
+    noise = flash_chk.bwd_noise(*plain, **kw)
+    errs = flash_chk.bwd_errors(got, ref, noise)
+    if not flash_chk.within_bwd(errs, qf.dtype):
+        fail(f"kernels 6 and 7 at the path's shape {tuple(qf.shape)}: "
+             f"{errs} (tolerance {flash_chk.TOL_BWD[qf.dtype]})")
+    pairs, live_rows = visible_pairs(offs, t)
+    el = qf.element_size()
+    # each input read once, each output written once: q, dO, lse, delta
+    # of every row; k and v of the rows that see a key; f32 outputs
+    rows_in = rows * t * (2 * d * el + 8)
+    kv_in = 2 * live_rows * t * d * el
+    rows_out = {6: rows * t * d * 4, 7: 2 * rows * t * d * 4}
+    out = {}
+    for kern, ms, units in ((6, ms6, 3), (7, ms7, 4)):
+        flop = 2 * units * d * pairs
+        op_ms = flop / BF16_FLOPS_PER_S * 1e3
+        mem_ms = (rows_in + kv_in + rows_out[kern]) / HBM_BYTES_PER_S * 1e3
+        out[kern] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, mem_ms),
+                         op_ms=op_ms, mem_ms=mem_ms, flop=flop,
+                         bound_by="operations" if op_ms >= mem_ms else "bytes")
+    out["errors"] = errs
+    return out
+
+
+def sdpa_ms(qkv, do):
+    """scaled_dot_product_attention(is_causal=True) on the global tensors:
+    the forward's time and the forward and backward's (CUDA events)."""
+    q, k, v = (x.transpose(1, 2).contiguous() for x in qkv)
+    fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    return fwd, ring_bench.sdpa_fwd_bwd_ms(qkv, do, 10)
+
+
+def path_e(dev, on_card, card):
+    """Phase 20: ring attention's forward and backward at n = 1 and 4."""
+    shape = FLASH_SHAPE if on_card else (1, 64, 2, 16)
+    b, t, h, d = shape
+    qkv = ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=0)
+    do_g = ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=1)[0]
+    tol = flash_chk.TOL_BWD[torch.bfloat16]
+    runs, totals = [], {}
+    for n in FLASH_RANKS:
+        reset_counts()
+        rec, grads = ring_bench.run_backward(shape, n, BWD_ITERS,
+                                             torch.bfloat16, device=dev,
+                                             qkv=qkv)
+        # the path's launches, read before run_backward's check ran the
+        # kernel route again
+        launches = {k: rec["launches"][k] for k in flash.LAUNCHES}
+        hops = rec["launches"]["hop"]
+        steps = BWD_ITERS + 1  # the warm-up and the timed steps
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        want_hops = steps * (n - 1 + (n if n > 1 else 0))
+        if on_card and (any(v != n * steps for v in launches.values())
+                        or hops != want_hops):
+            fail(f"path (e) n={n}: {launches} and {hops} hop launches in "
+                 f"{steps} steps, expected {n} of each kernel and "
+                 f"{want_hops // steps} hops per step")
+        if any(g.shape != (n, b, t // n, h, d)
+               or not bool(torch.isfinite(g).all()) for g in grads):
+            fail(f"path (e) n={n}: a gradient is not finite or has another "
+                 "shape")
+        errs = rec["grad_errors"]
+        if not rec["within"]:
+            fail(f"path (e) n={n}: the f32 gradients against the plain "
+                 f"route's {errs}, tolerance {tol}")
+        if not rec["grads_are_f32_cast"]:
+            fail(f"path (e) n={n}: the entry point's dq, dk, dv are not the "
+                 "f32 gradients cast")
+        del grads
+        rec.update(hop_launches=hops)
+        runs.append(rec)
+        tflops = (f"{rec['tflops']:.1f} TFLOP/s" if rec["tflops"] is not None
+                  else "no rate (CPU)")
+        log(f"  n={n}: {rec['ms_per_step']:.4f} ms per forward+backward "
+            f"(mean of {BWD_ITERS} after a warm-up), {tflops} (3.5 x the "
+            f"causal forward's flop); launches in {steps} steps: {launches}, "
+            f"{hops} hops; plain route {rec['plain_ms']:.4f} ms; f32 "
+            f"gradients over their noise dq {errs['dq']:.3e}, dk "
+            f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (tolerance {tol}), the "
+            f"entry point's their cast [{card}]")
+        if on_card:
+            prof = ring_bench.device_profile(shape, n, device=dev, qkv=qkv,
+                                             backward=True)
+            rec["profile"] = prof
+            log(f"  n={n} profiler: card busy "
+                f"{prof['busy_ms_per_forward']:.4f} of "
+                f"{prof['wall_ms_per_forward']:.4f} ms per step "
+                f"({prof['busy_share']:.3f}), by group "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            prof["ms_per_forward_by_group"].items()))
+    if not on_card:
+        return runs, totals, None
+
+    # kernels 6 and 7 per launch: the whole backward at n = 1, each step at
+    # n = 4, with the lse and delta of the path's forward
+    steps = {}
+    for n in FLASH_RANKS:
+        comm = make_mesh(n, device=dev)
+        q, k, v, do = (ring_bench.shard(x, n) for x in (*qkv, do_g))
+        steps[n] = []
+        for i, st in enumerate(flash_chk.ring_bwd_steps(q, k, v, do, comm,
+                                                        True)):
+            row = bwd_launches(dev, *st.args, t // n, 10, 1)
+            steps[n].append(row)
+            log_bwd_launch(f"n={n} step {i}", row)
+        del q, k, v, do, st
+    fwd_ms, fwd_bwd_ms = sdpa_ms(qkv, do_g)
+    log(f"  scaled_dot_product_attention(is_causal=True) on the same "
+        f"tensors: forward {fwd_ms:.4f} ms, forward+backward "
+        f"{fwd_bwd_ms:.4f} ms, so its backward {fwd_bwd_ms - fwd_ms:.4f} ms")
+    return runs, totals, dict(steps=steps, sdpa_fwd_ms=fwd_ms,
+                              sdpa_fwd_bwd_ms=fwd_bwd_ms,
+                              library_ms=fwd_bwd_ms - fwd_ms)
+
+
+def log_bwd_launch(at, row):
+    for kern in (6, 7):
+        r = row[kern]
+        log(f"  kernel {kern}, {at}: {r['ms']:.4f} ms per launch "
+            f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: ops {r['op_ms']:.4f}, "
+            f"bytes {r['mem_ms']:.4f}), {r['bound_ms'] / r['ms']:.3f} of it")
+    log(f"  plain version (both) {row[6]['plain_ms']:.4f} ms; errors dq "
+        f"{row['errors']['dq']:.2e}, dk {row['errors']['dk']:.2e}, dv "
+        f"{row['errors']['dv']:.2e} of the noise scale")
+
+
+def log_fwd_launch(at, row):
+    log(f"  kernel 5, {at}: {row['ms']:.4f} ms per launch "
+        f"({row['flop'] / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: ops "
+        f"{row['op_ms']:.4f}, bytes {row['mem_ms']:.4f}), "
+        f"{row['bound_ms'] / row['ms']:.3f} of it; plain "
+        f"{row['plain_ms']:.4f} ms; o error {row['errors']['o']:.2e} of the "
+        "noise scale")
+
+
+def path_f_launches(dev, cfg, batch, seq, mesh, seed, reps, plain_reps):
+    """Kernels 5, 6 and 7 at the shapes a mesh's GPT step gives them
+    (``gpt_step.attention_inputs``: every rank's batch rows and heads in
+    one launch), with the lse and delta of the ring's forward.  Per ring
+    step: kernel 5 and kernels 6 and 7 each held to the plain version at
+    that shape, with their times and bounds."""
+    *qkvdo, comm = gpt_bench.attention_inputs(cfg, mesh, batch, seq, seed,
+                                              dev)
+    t = seq // mesh[2]
+    rows = []
+    for i, st in enumerate(flash_chk.ring_bwd_steps(*qkvdo, comm, True)):
+        at = f"{mesh} step {i}, {st.q.shape[0]} rows of T{t} D{st.q.shape[2]}"
+        fwd = flash_launch(dev, st.q, st.k, st.v, st.offs, t, reps,
+                           plain_reps)
+        log_fwd_launch(at, fwd)
+        bwd = bwd_launches(dev, *st.args, t, reps, plain_reps)
+        log_bwd_launch(at, bwd)
+        rows.append(dict(at=at, fwd=fwd, bwd=bwd))
+    return rows
+
+
+def path_f_rows(f_times, part, kern=None):
+    """The kernels line's record of path (f)'s launches of kernel 5
+    (``part`` "fwd") or of kernel ``kern`` ("bwd"): per mesh and ring
+    step, the time, the plain version's, the bound and the errors."""
+    out = []
+    for rows in f_times["launches"].values():
+        for row in rows:
+            r = row[part] if kern is None else row[part][kern]
+            errs = row[part]["errors"]
+            out.append({"at": row["at"], **{k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}, "errors": errs})
+    return out
+
+
+def path_f(dev, on_card, card):
+    """Phase 21: the GPT-2 124M train step at (1, 1, 1) and (1, 2, 2)."""
+    cfg = gpt_bench.CFG if on_card else gpt.GPTConfig(
+        vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=32,
+        dtype="bfloat16")
+    batch, seq = (gpt_bench.BATCH, gpt_bench.SEQ) if on_card else (2, 32)
+    tol = gpt_bench.ROUTE_TOL[cfg.dtype]
+    runs, totals = [], {}
+    for mesh in gpt_bench.MESHES:
+        sp = mesh[2]
+        reset_counts()
+        rec, model = gpt_bench.run(mesh, GPT_STEPS, cfg=cfg, batch=batch,
+                                   seq=seq, device=dev)
+        launches = {k: flash.LAUNCHES[k] for k in flash.LAUNCHES}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        steps = GPT_STEPS + 1
+        per_step = cfg.n_layers * sp
+        if on_card and any(v != per_step * steps for v in launches.values()):
+            fail(f"path (f) {mesh}: {launches} in {steps} steps, expected "
+                 f"{per_step} launches of each kernel per step")
+        if not all(np.isfinite(rec["losses"])):
+            fail(f"path (f) {mesh}: losses {rec['losses']}")
+        rec["launches"] = launches
+        rate = (f"{rec['model_tflops']:.1f} model TFLOP/s"
+                if rec["model_tflops"] is not None else "no rate (CPU)")
+        log(f"  mesh {mesh}: {rec['ms_per_step']:.2f} ms per step (mean of "
+            f"{GPT_STEPS} after a warm-up), {rec['tokens_per_s']:.0f} "
+            f"tokens/s, {rate}, {rec['params_M']:.2f} M params; losses "
+            f"{[round(x, 4) for x in rec['losses']]}; launches in {steps} "
+            f"steps {launches}, per step {rec['launches_per_step']} [{card}]")
+        if on_card:
+            toks = gpt_bench.make_tokens(batch, seq, cfg.vocab, 0, dev)
+            prof = gpt_bench.profile(model, toks)
+            rec["profile"] = prof
+            log(f"  mesh {mesh} profiler: card busy "
+                f"{prof['busy_ms_per_step']:.2f} of "
+                f"{prof['wall_ms_per_step']:.2f} ms per step "
+                f"({prof['busy_share']:.3f}), by group "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            prof["ms_per_step_by_group"].items()))
+        del model
+        toks = gpt_bench.make_tokens(batch, seq, cfg.vocab, 0, dev)
+        routes = gpt_bench.route_check(cfg, mesh, toks, device=dev)
+        rec["route_check"] = routes
+        log(f"  mesh {mesh} kernel route vs plain route, one step: loss "
+            f"{routes['loss_kernel']:.6f} vs {routes['loss_plain']:.6f} "
+            f"({routes['loss_rel']:.2e}); worst field gradient "
+            f"{routes['worst_grad']:.3e}, update {routes['worst_update']:.3e}"
+            f" in relative L2 (gpt_step.ROUTE_TOL {tol})")
+        if not routes["within"]:
+            fail(f"path (f) {mesh}: kernel route against plain route "
+                 f"{routes}")
+        runs.append(rec)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if not on_card:
+        return runs, totals, None
+
+    # kernels 5, 6 and 7 per launch at each mesh's attention shapes: B8 x
+    # 12 heads of T1024 at (1, 1, 1); the two ring steps of 192 rows
+    # (2 x 2 ranks, B8 x 6 heads) of T512 at (1, 2, 2)
+    launches = {mesh: path_f_launches(dev, cfg, batch, seq, mesh, 2 + i,
+                                      20 if mesh == (1, 1, 1) else 5,
+                                      2 if mesh == (1, 1, 1) else 1)
+                for i, mesh in enumerate(gpt_bench.MESHES)}
+    shape = (batch, seq, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    fwd_ms, fwd_bwd_ms = sdpa_ms(
+        ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=2),
+        ring_bench.make_qkv(shape, torch.bfloat16, dev, seed=3)[0])
+    log(f"  scaled_dot_product_attention(is_causal=True) at the (1, 1, 1) "
+        f"step's attention {shape}: forward {fwd_ms:.4f} ms, its backward "
+        f"{fwd_bwd_ms - fwd_ms:.4f} ms")
+    return runs, totals, dict(launches=launches, sdpa_fwd_ms=fwd_ms,
+                              sdpa_bwd_ms=fwd_bwd_ms - fwd_ms)
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -983,8 +1345,9 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13 and 15-17 on the CPU, "
-                         "plain versions, small size; prints no result line")
+                    help="phases 2-4, 7-10, 12, 13, 15-17 and 19-21 on the "
+                         "CPU, plain versions, small size; prints no result "
+                         "line")
     args = ap.parse_args(argv)
 
     on_card = not args.rehearse
@@ -1084,6 +1447,20 @@ def main(argv=None):
         f"{FLASH_SHAPE if on_card else (1, 64, 2, 16)} bf16 causal, n = "
         f"{', '.join(map(str, FLASH_RANKS))} [{card}]")
     d_runs, d_launches, d_times = path_d(dev, on_card, card)
+    if on_card:
+        log("phase 18: build of kernels 6 and 7, the flash backward")
+        log(f"  csrc/flash_bwd.cu: {build_secs['flash_bwd']:.2f} s")
+        log_registers("flash_bwd")
+    log(f"phase 19: kernels 6 and 7 vs flash_bwd_block_plain at the edge "
+        f"cases [{card}]")
+    bwd_worst, bwd_cases = check_flash_bwd(dev, on_card)
+    log(f"phase 20: path (e), ring attention's forward and backward at "
+        f"{FLASH_SHAPE if on_card else (1, 64, 2, 16)} bf16 causal, n = "
+        f"{', '.join(map(str, FLASH_RANKS))} [{card}]")
+    e_runs, e_launches, e_times = path_e(dev, on_card, card)
+    log(f"phase 21: path (f), the GPT-2 124M train step at "
+        f"{', '.join(map(str, gpt_bench.MESHES))} [{card}]")
+    f_runs, f_launches, f_times = path_f(dev, on_card, card)
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
@@ -1155,11 +1532,48 @@ def main(argv=None):
                                         "bound_by", "op_ms", "mem_ms")}
                      for r in d_times["steps"][4]],
         "edge_cases": flash_cases, "edge_worst": flash_worst,
-        "path_d": d_runs, "card": card,
+        "path_d": d_runs, "launches_path_e": e_launches["flash_fwd"],
+        "launches_path_f": f_launches["flash_fwd"],
+        "path_f_launches": path_f_rows(f_times, "fwd"), "card": card,
     }
+    bwd_rows = []
+    for kern, name, line in ((6, "flash_bwd_dq", 245),
+                             (7, "flash_bwd_dkv", 276)):
+        whole = e_times["steps"][1][0][kern]
+        bwd_rows.append({
+            "name": name, "route": "cuda",
+            "source": "mpi4jax_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"mpi4jax_tpu/ops/flash.py:{line}",
+            "launches": f_launches[name],
+            "max_abs_err": max(r["errors"]["max_abs_err"]
+                               for rows in e_times["steps"].values()
+                               for r in rows),
+            "grad_error_of_noise": max(
+                max(r["errors"][g] for g in ("dq", "dk", "dv"))
+                for rows in e_times["steps"].values() for r in rows),
+            "ok": True, "ms": whole["ms"], "plain_ms": whole["plain_ms"],
+            "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+            "library_ms": e_times["library_ms"],
+            "library": "the backward of torch.nn.functional."
+                       "scaled_dot_product_attention(is_causal=True) (dq, dk "
+                       "and dv together: forward+backward minus forward)",
+            "at": f"B{FLASH_SHAPE[0]} T{FLASH_SHAPE[1]} H{FLASH_SHAPE[2]} "
+                  f"D{FLASH_SHAPE[3]} bf16 causal, n=1 (one launch per "
+                  "backward)",
+            "launches_path_e": e_launches[name],
+            "steps_n4": [{k: r[kern][k] for k in ("ms", "bound_ms",
+                                                   "bound_by")}
+                         for r in e_times["steps"][4]],
+            "path_f_launches": path_f_rows(f_times, "bwd", kern),
+            "path_f_sdpa_bwd_ms": f_times["sdpa_bwd_ms"],
+            "edge_cases": bwd_cases, "edge_worst": bwd_worst,
+            "card": card,
+        })
+    bwd_rows[0]["path_e"] = e_runs
+    bwd_rows[0]["path_f"] = f_runs
     log(f"card: {card}")
     print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row,
-                                  flash_row]}))
+                                  flash_row, *bwd_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

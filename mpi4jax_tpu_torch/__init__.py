@@ -20,11 +20,14 @@ Ported so far:
   and its fused single-block step kernel (``csrc/sw_step.cu``);
 - the slab-decomposed 3-D FFT and Poisson solver
   (``models/spectral.py``), whose transposes ride the alltoall;
-- ring attention's forward (``parallel/ring.py``, ``ops/flash.py``): one
-  launch of the flash forward kernel (``csrc/flash_fwd.cu``) per ring step
-  for every rank, and k and v one hop further between steps
-  (``ring_shift_n``).  Its ``impl="xla"`` recurrence is differentiable; the
-  flash route's backward is not ported yet.
+- ring attention (``parallel/ring.py``, ``ops/flash.py``): one launch of
+  the flash forward kernel (``csrc/flash_fwd.cu``) per ring step for every
+  rank, and k and v one hop further between steps (``ring_shift_n``); its
+  backward, one launch each of the dq and dk/dv kernels
+  (``csrc/flash_bwd.cu``) per step, dk and dv riding the ring home;
+- the dp x tp x sp GPT (``models/transformer.py``), whose train step runs
+  those three kernels in every layer, and its CLI
+  (``examples/train_gpt.py``).
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import threading
 
 import torch
 
@@ -69,9 +68,10 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
            torch.uint64: torch.int64}
 
 
-class _Route(threading.local):
-    def __init__(self):
-        self.plain = False
+class _Route:
+    # process-wide, not per thread: autograd runs a CUDA tensor's backward
+    # on its own device thread, which must see the route of the forward
+    plain = False
 
 
 _route = _Route()
@@ -79,8 +79,9 @@ _route = _Route()
 
 @contextlib.contextmanager
 def use_plain():
-    """Run the plain versions on CUDA tensors too, inside the block: the
-    oracle a kernel run is compared with."""
+    """Run the plain versions on CUDA tensors too, inside the block, in
+    every thread (the backward of a CUDA tensor runs on autograd's device
+    thread): the oracle a kernel run is compared with."""
     before = _route.plain
     _route.plain = True
     try:

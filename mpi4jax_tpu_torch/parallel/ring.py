@@ -5,7 +5,10 @@ k and v are ``(*lead, B, T_local, H, D)``: the comm's mesh rank dimensions
 leading (``parallel/mesh.py``), then each rank's shard of the sequence, in
 rank order along the comm.  Causality is resolved at global positions.
 Each ring step rotates k and v one hop together (``ring_shift_n``, one
-launch of the hop kernel on the card).
+launch of the hop kernel on the card).  Both routes are differentiable: the
+flash route's backward runs kernels 6 and 7 and carries dk and dv home
+around the ring (``ops/flash.py``), the recurrence's goes through torch
+autograd and the hop's backward.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def ring_attention(q, k, v, *, comm=None, causal: bool = False, scale=None,
         causal: apply a causal mask over global positions.
         scale: score scale (default ``1/sqrt(D)``).
         impl: ``"pallas"``: the flash route, kernel 5 for the local blocks
-            (``ops/flash.py``; the name is the JAX package's); ``"xla"``:
+            and kernels 6 and 7 for their backward (``ops/flash.py``; the
+            name is the JAX package's); ``"xla"``:
             the einsum recurrence below in plain torch, differentiable
             through torch autograd and the hop's backward; ``"auto"``:
             the flash route on a CUDA tensor, the recurrence on a CPU

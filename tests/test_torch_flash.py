@@ -176,12 +176,18 @@ def test_ring_gradient_matches_jax():
 
 
 def test_flash_route_backward_raises():
+    """The flash route's backward runs on the CPU (the plain versions of
+    kernels 6 and 7) and gives the recurrence's gradient."""
     comm = mt.make_mesh(N, device="cpu")
-    q, k, v = (ring_bench.shard(torch.from_numpy(x), N).requires_grad_()
-               for x in _ring_inputs(2))
-    out = ring_attention(q, k, v, comm=comm, causal=True, impl="pallas")
-    with pytest.raises(NotImplementedError, match="kernels 6 and 7"):
+    grads = {}
+    for impl in ("pallas", "xla"):
+        qkv = [ring_bench.shard(torch.from_numpy(x), N).requires_grad_()
+               for x in _ring_inputs(2)]
+        out = ring_attention(*qkv, comm=comm, causal=True, impl=impl)
         out.sum().backward()
+        grads[impl] = [x.grad for x in qkv]
+    for got, want in zip(grads["pallas"], grads["xla"]):
+        torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
 
 
 def test_ring_arguments():

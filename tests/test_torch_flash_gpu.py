@@ -1,5 +1,6 @@
-"""Kernel 5 (``csrc/flash_fwd.cu``) and the flash route of ring attention
-against their plain versions, on the card.
+"""Kernels 5, 6 and 7 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the
+flash route of ring attention, forward and backward, against their plain
+versions, on the card.
 
 Marked ``gpu``: without a card every test skips.  This file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
@@ -18,7 +19,10 @@ row's, which spreads the difference by about ``u sqrt(2/3)`` of the scale
 reading and the readings of planted faults
 (``mpi4jax_tpu_torch.benchmarks.flash_tolerance``).  The ring's f32 output,
 before its cast, is held to the plain route's with the same limits: each p
-is rounded once on both routes.
+is rounded once on both routes.  The backward's ``(dq, dk, dv)`` are held
+to ``_flash_check.TOL_BWD``, each component over the noise scale of the
+rounding its sum goes through (``bwd_noise``, ``ring_bwd_noise``), between
+the sound kernels' readings and those of planted faults.
 """
 
 import pytest
@@ -95,11 +99,102 @@ def test_ring_route_matches_plain_route(cuda, n, dtype):
 
 @pytest.mark.gpu
 def test_ring_route_backward_raises(cuda):
+    """The flash route's backward runs on the card: n launches each of
+    kernels 6 and 7 and n hops at n = 2, finite gradients."""
     comm = make_mesh(2, device=cuda)
     q = torch.randn(2, 1, 64, 2, 16, device=cuda, requires_grad=True)
+    before = (flash.LAUNCHES["flash_bwd_dq"], flash.LAUNCHES["flash_bwd_dkv"],
+              coll.LAUNCHES["hop"])
     out = ring_attention(q, q, q, comm=comm, causal=True)
-    with pytest.raises(NotImplementedError, match="kernels 6 and 7"):
-        out.sum().backward()
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES["flash_bwd_dq"], flash.LAUNCHES["flash_bwd_dkv"],
+            coll.LAUNCHES["hop"]) == (before[0] + 2, before[1] + 2,
+                                      before[2] + 1 + 2)
+    assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
+
+
+@pytest.mark.gpu
+def test_plain_route_backward_launches_nothing(cuda):
+    """Under ``use_plain()`` the backward, which autograd runs on its
+    device thread, takes the plain versions too."""
+    comm = make_mesh(2, device=cuda)
+    q = torch.randn(2, 1, 64, 2, 16, device=cuda, requires_grad=True)
+    before = (dict(flash.LAUNCHES), dict(coll.LAUNCHES))
+    with coll.use_plain():
+        ring_attention(q, q, q, comm=comm, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, coll.LAUNCHES) == before
+    assert bool(torch.isfinite(q.grad).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", chk.HEAD_DIMS)
+def test_bwd_kernels_match_plain_at_the_edges(cuda, dtype, d):
+    count = 0
+    for (tag, q, k, v, do, lse, delta, qo, ko, scale,
+         causal) in chk.bwd_cases(cuda, dtypes=(dtype,), head_dims=(d,)):
+        before = (flash.LAUNCHES["flash_bwd_dq"],
+                  flash.LAUNCHES["flash_bwd_dkv"])
+        got = flash.flash_bwd_block(q, k, v, do, lse, delta, qo, ko,
+                                    scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        assert (flash.LAUNCHES["flash_bwd_dq"],
+                flash.LAUNCHES["flash_bwd_dkv"]) == (before[0] + 1,
+                                                     before[1] + 1)
+        ref = flash.flash_bwd_block_plain(q, k, v, do, lse, delta, qo, ko,
+                                          scale=scale, causal=causal)
+        noise = chk.bwd_noise(q, k, v, do, lse, delta, qo, ko, scale=scale,
+                              causal=causal)
+        errs = chk.bwd_errors(got, ref, noise)
+        assert chk.within_bwd(errs, dtype), (tag, errs)
+        count += 1
+    assert count
+
+
+@pytest.mark.gpu
+def test_bwd_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 8, 48, device=cuda, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 8, 1, device=cuda)
+    offs = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    for fn in (flash._flash_bwd_dq_kernel, flash._flash_bwd_dkv_kernel):
+        with pytest.raises(ValueError, match="head sizes"):
+            fn(q, q, q, q, rows, rows, offs, scale=1.0, causal=False)
+        x = torch.zeros(2, 8, 64, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(TypeError, match="takes q, k, v, dO"):
+            fn(x, x, x, x.float(), rows, rows, offs, scale=1.0, causal=False)
+        with pytest.raises(ValueError, match="lse must be"):
+            fn(x, x, x, x, rows.double(), rows, offs, scale=1.0,
+               causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_route_gradient_matches_plain_route(cuda, n, dtype):
+    shape = (2, 512, 4, 64)
+    comm = make_mesh(n, device=cuda)
+    q, k, v = (ring_bench.shard(x, n).requires_grad_()
+               for x in ring_bench.make_qkv(shape, dtype, cuda, seed=n))
+    do = ring_bench.shard(ring_bench.make_qkv(shape, dtype, cuda,
+                                              seed=n + 10)[0], n)
+    before = (flash.LAUNCHES["flash_bwd_dq"], flash.LAUNCHES["flash_bwd_dkv"],
+              coll.LAUNCHES["hop"])
+    ring_attention(q, k, v, comm=comm, causal=True).backward(do)
+    torch.cuda.synchronize()
+    # forward: n - 1 hops; backward: n (none at n = 1)
+    hops = n - 1 + (n if n > 1 else 0)
+    assert (flash.LAUNCHES["flash_bwd_dq"], flash.LAUNCHES["flash_bwd_dkv"],
+            coll.LAUNCHES["hop"]) == (before[0] + n, before[1] + n,
+                                      before[2] + hops)
+    # the f32 gradients within TOL_BWD of the plain route's, and the entry
+    # point's gradients those f32 gradients cast, dq through the
+    # prescale's chain rule
+    res = chk.ring_grad_check(q.detach(), k.detach(), v.detach(), do, comm,
+                              True, (q.grad, k.grad, v.grad))
+    assert res["within"] and res["grads_are_f32_cast"], res
 
 
 @pytest.mark.gpu
