@@ -6,10 +6,10 @@
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. the card's name and power limit; build the six sources of
-   ``mpi4jax_tpu_torch/csrc/`` (seven kernels) with nvcc, one process each,
-   all started together, and print the fused step's build time and ptxas
-   lines;
+1. the card's name and power limit; build the seven sources of
+   ``mpi4jax_tpu_torch/csrc/`` (eight kernels) with nvcc, one process each,
+   and the native transport (``native/tpucomm.cc``, g++), all started
+   together, and print the fused step's build time and ptxas lines;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
    the Euler step from a check state (the initial jet with seeded
    grid-scale noise), and fuse=1 and fuse=3 from that state after two plain
@@ -37,9 +37,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    beside its bound, its plain version and ``torch.roll``;
 8. the fused ring against ``fused_ring_allreduce_plain`` on the card, bit
    for bit, at n = 3, 4 and 8 and 1, 513, 16Ki, 16Ki+37 and 4Mi+3 elements
-   per rank (f32), and in the other dtypes it takes; every output row
-   identical; its time at n = 4 and 16 MiB per rank beside its bound, its
-   plain version and ``x.sum(0)``;
+   per rank (f32), at path (g)'s island fold, n = 2 and 3, 513, 70000, 4Mi
+   and 16Mi elements, and in the other dtypes it takes; every output row
+   identical; its time at n = 4 and 16 MiB per rank, and at n = 2 and 16
+   and 64 MiB per rank (path (g)'s), beside its bound, its plain version
+   and ``x.sum(0)``;
 9. path (b): the allreduce sweep (``mpi4jax_tpu_torch.benchmarks.
    allreduce_sweep``) through ``ops.allreduce`` at n = 4 and 8 from 1 KiB
    to 64 MiB per rank, the launch counters reset just before and read just
@@ -121,13 +123,36 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    and its AdamW update within ``ROUTE_TOL``, relative L2); kernels 5, 6
    and 7 per launch at each mesh's attention shapes (B8 x 12 heads of T1024
    at (1, 1, 1); both ring steps of 192 rows of T512 at (1, 2, 2)), each
-   held to its plain version within ``TOL`` or ``TOL_BWD``.
+   held to its plain version within ``TOL`` or ``TOL_BWD``;
+22. the build of kernel 4, the int8 wire codec (``csrc/quant_pack.cu``):
+   ptxas lines; and the transport's build seconds;
+23. kernel 4 against ``quant_pack_plain`` on the card, bit for bit, at
+   n = 0, 1, 255, 256, 257, 70000, 4Mi and 16Mi elements (path (g)'s 16 and
+   64 MiB), each with the edge cases of ``quantized.check_inputs`` (zero
+   blocks, +-amax, exact ties, a subnormal scale with subnormal elements,
+   magnitudes near 1e30 and 3e38), and an input off a 16-byte boundary;
+   the same frames against the transport's codec (``tpucomm_quant_pack``);
+   its time per launch at 16 and 64 MiB (the profiler's kernel time with
+   the L2 flushed between launches, and with the input in L2; CUDA events
+   per call) beside its bytes bound and the plain version's time;
+24. path (g): the world tier's hierarchical f32 allreduce
+   (``mpi4jax_tpu_torch.benchmarks.ici_leg``), 4 ranks on the card through
+   ``mpi4jax_tpu_torch.runtime.launch -n 4 --fake-hosts 'r0,r1|r2,r3'``,
+   ``MPI4JAX_TPU_ICI_LEG=force``, one job exact and one with
+   ``MPI4JAX_TPU_COLL_QUANT=force``: ``algo`` hring and htree at 3, 513,
+   70000 and 4Mi f32 per rank, every rank bit for bit against the port's
+   ``simulate_h{ring,tree}_sum(..., intra="ring")`` or
+   ``simulate_ici_q_sum``, the ranks agreeing, the quantized result within
+   5e-2 of the exact sum; one launch of kernel 3 per rank and call, and of
+   kernel 4 per rank and quantized call (each job's counts start at 0 in
+   its rank processes); ms per call at 16 and 64 MiB per rank with its
+   phase split, beside the native ``hring`` with the leg off.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
-no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17 and 19-21
-on the CPU through the plain versions at a small size and prints no result
-line.
+no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
+23 and 24 on the CPU through the plain versions at a small size and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -138,13 +163,16 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
+from mpi4jax_tpu_torch.benchmarks._profile import kernel_ms_by_group
 from mpi4jax_tpu_torch.benchmarks import gpt_step as gpt_bench
+from mpi4jax_tpu_torch.benchmarks import ici_leg
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
 from mpi4jax_tpu_torch.models import _sw_check as chk
@@ -154,10 +182,11 @@ from mpi4jax_tpu_torch.models import spectral
 from mpi4jax_tpu_torch.models import transformer as gpt
 from mpi4jax_tpu_torch.ops import _collectives as coll
 from mpi4jax_tpu_torch.ops import _flash_check as flash_chk
-from mpi4jax_tpu_torch.ops import _mesh_impl, flash
+from mpi4jax_tpu_torch.ops import _mesh_impl, flash, quantized
 from mpi4jax_tpu_torch.parallel.grid import ProcessGrid
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange
 from mpi4jax_tpu_torch.parallel.mesh import make_mesh
+from mpi4jax_tpu_torch.runtime import bridge
 
 SHAPE = (1800, 3600)
 EDGE_SHAPES = [(16, 32), (22, 32), (70, 50)]
@@ -169,7 +198,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # viscous update 14
 FLOPS_PER_CELL_STEP = 104
 KERNELS = ("sw_step", "hop", "fused_ring", "alltoall", "flash_fwd",
-           "flash_bwd")
+           "flash_bwd", "quant_pack")
 HOP_DTYPES = (torch.float32, torch.float64, torch.int32, torch.bfloat16,
               torch.complex64, torch.uint8)
 HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
@@ -201,6 +230,15 @@ FLASH_ITERS = 5
 # half); path (f): bench.py's bench_gpt2_step (GPT-2 124M, B8 T1024 bf16)
 BWD_ITERS = 3
 GPT_STEPS = 3
+# kernel 4 (phase 23): the codec's lengths, and the per-rank payloads of
+# path (g) at which it is timed
+QUANT_LENGTHS = (0, 1, 255, 256, 257, 70000, 4 * 1024 * 1024,
+                 16 * 1024 * 1024)
+QUANT_TIMED = (16 * 1024 * 1024, 64 * 1024 * 1024)
+# path (g) (phase 24): the check counts and the timed payloads per rank
+G_COUNTS = (3, 513, 70000, 4 * 1024 * 1024)
+G_SIZES = (16 * 1024 * 1024, 64 * 1024 * 1024)
+G_CALLS = 5
 
 
 def log(msg=""):
@@ -287,10 +325,16 @@ def log_registers(name):
 
 def reset_counts():
     kernel.LAUNCHES = 0
-    for k in coll.LAUNCHES:
-        coll.LAUNCHES[k] = 0
-    for k in flash.LAUNCHES:
-        flash.LAUNCHES[k] = 0
+    for counts in (coll.LAUNCHES, flash.LAUNCHES, quantized.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def timed_build():
+    """The transport's build (g++), in seconds."""
+    t0 = time.perf_counter()
+    bridge.build()
+    return time.perf_counter() - t0
 
 
 def bits_equal(a, b):
@@ -325,23 +369,30 @@ def random_tensor(shape, dtype, dev, seed):
     return x.to(dev)
 
 
+# the largest |kernel - plain| that same_as_plain has seen since its reset
+WORST = {"diff": 0.0}
+
+
 def same_as_plain(what, fn, *args):
     """``fn(*args)`` against the same call on the plain route, bit for
-    bit; returns the result and the number of tensors compared."""
+    bit; returns the result.  The largest difference goes to WORST."""
     got = fn(*args)
     with coll.use_plain():
         ref = fn(*args)
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     for g, r in zip(got, ref):
+        diff = abs_diff(g, r)
+        WORST["diff"] = max(WORST["diff"], diff)
         if not bits_equal(g, r):
-            fail(f"{what}: differs from the plain version by "
-                 f"{abs_diff(g, r):.3e}")
+            fail(f"{what}: differs from the plain version by {diff:.3e}")
     return got
 
 
 def check_hop(dev):
-    """Phase 7: the hop kernel against hop_plain, bit for bit."""
+    """Phase 7: the hop kernel against hop_plain, bit for bit; returns
+    the largest difference."""
+    WORST["diff"] = 0.0
     cases = 0
     seed = 0
     for n in (2, 4, 8):
@@ -382,23 +433,31 @@ def check_hop(dev):
                     cases += 1
     sync(dev)
     log(f"  {cases} hop calls equal their plain versions bit for bit")
-    return cases
+    return WORST["diff"]
 
 
-def check_ring(dev):
-    """Phase 8: the fused ring against its plain version, bit for bit."""
+def check_ring(dev, on_card):
+    """Phase 8: the fused ring against its plain version, bit for bit, at
+    the mesh's n = 3, 4, 8 and at path (g)'s island fold (n = 2, its check
+    counts and timed payloads); returns the largest difference."""
+    WORST["diff"] = 0.0
     cases = 0
     seed = 100
-    for n in (3, 4, 8):
-        for count in RING_COUNTS:
+    g_counts = G_COUNTS + tuple(b // 4 for b in G_SIZES[1:]) if on_card \
+        else G_COUNTS[:3]
+    for n, counts in ((2, g_counts), (3, RING_COUNTS), (4, RING_COUNTS),
+                      (8, RING_COUNTS)):
+        for count in counts:
             seed += 1
             rows = random_tensor((n, count), torch.float32, dev, seed)
             got = coll.fused_ring_kernel(rows) if dev.type == "cuda" \
                 else coll.fused_ring_allreduce_plain(rows)
             ref = coll.fused_ring_allreduce_plain(rows)
+            diff = abs_diff(got, ref)
+            WORST["diff"] = max(WORST["diff"], diff)
             if not bits_equal(got, ref):
                 fail(f"fused ring n={n} count={count}: differs from the "
-                     f"plain version by {abs_diff(got, ref):.3e}")
+                     f"plain version by {diff:.3e}")
             if not bits_equal(got, got[:1].expand_as(got)):
                 fail(f"fused ring n={n} count={count}: rows differ")
             cases += 1
@@ -412,7 +471,7 @@ def check_ring(dev):
     sync(dev)
     log(f"  {cases} fused-ring calls equal their plain versions bit for "
         "bit, every row identical")
-    return cases
+    return WORST["diff"]
 
 
 def time_hop(dev, model):
@@ -592,7 +651,9 @@ def path_a(shape, dev, ref_1x1, on_card, reps):
 
 def check_alltoall(dev, on_card):
     """Phase 12: the alltoall kernel against alltoall_plain, bit for bit,
-    and the fronts built on it against the plain route."""
+    and the fronts built on it against the plain route; returns the
+    largest difference."""
+    WORST["diff"] = 0.0
     grid = ProcessGrid((2, 4), device=dev)
     comms = ([make_mesh(n, device=dev) for n in (2, 3, 4, 8)]
              + [grid.axis_comm(0), grid.axis_comm(1)])
@@ -644,7 +705,7 @@ def check_alltoall(dev, on_card):
     sync(dev)
     log(f"  {cases} alltoall calls (kernel, backward, fronts) equal their "
         "plain versions bit for bit")
-    return cases
+    return WORST["diff"]
 
 
 def time_alltoall(dev, size=SPECTRAL_N, n=4):
@@ -1279,6 +1340,132 @@ def path_f(dev, on_card, card):
                               sdpa_bwd_ms=fwd_bwd_ms - fwd_ms)
 
 
+def quant_frame_bytes(n):
+    """Bytes kernel 4 must move for n elements: each f32 read once, the
+    frame (codes and block scales) written once."""
+    return 4 * n + quantized.quant_packed_bytes(n)
+
+
+def check_quant_pack(dev, on_card):
+    """Phase 23: kernel 4 against quant_pack_plain, bit for bit, at the
+    codec's edge cases, and the same frames against the transport's codec;
+    its time per launch at path (g)'s payloads.  Returns the number of
+    inputs, the largest difference of a frame's bytes (as integers) from
+    either reference, and the times."""
+    cases = 0
+    worst = 0.0
+    lengths = QUANT_LENGTHS if on_card else QUANT_LENGTHS[:6]
+    for n in lengths:
+        if n == 0:
+            before = dict(quantized.LAUNCHES)
+            if quantized.quant_pack(torch.zeros(0, device=dev)).numel() != 0 \
+                    or quantized.LAUNCHES != before:
+                fail("kernel 4: an empty input must give an empty frame "
+                     "and launch nothing")
+            cases += 1
+            continue
+        for name, x in quantized.check_inputs(n).items():
+            t = torch.from_numpy(x).to(dev)
+            got = quantized.quant_pack(t)
+            ref = quantized.quant_pack_plain(t)
+            native = torch.from_numpy(bridge.quant_pack(x)).to(dev)
+            worst = max(worst, abs_diff(got, ref), abs_diff(got, native))
+            if not bits_equal(got, ref):
+                fail(f"kernel 4, {name} n={n}: differs from quant_pack_plain "
+                     f"in {int((got != ref).sum())} bytes")
+            if not bits_equal(got, native):
+                fail(f"kernel 4, {name} n={n}: differs from the transport's "
+                     "codec (tpucomm_quant_pack)")
+            cases += 1
+    x = torch.from_numpy(quantized.check_inputs(70001)["normal"]).to(dev)
+    got, ref = quantized.quant_pack(x[1:]), quantized.quant_pack_plain(x[1:])
+    worst = max(worst, abs_diff(got, ref))
+    if not bits_equal(got, ref):
+        fail("kernel 4 on an input 4 bytes past a 16-byte boundary differs "
+             "from quant_pack_plain")
+    sync(dev)
+    log(f"  {cases + 1} inputs: kernel 4 equals quant_pack_plain and the "
+        "transport's codec bit for bit")
+    times = {}
+    # 64 MiB written between launches evicts the 50 MB L2, so each launch
+    # reads its input from device memory, as the bound assumes
+    flush = torch.empty(16 * 1024 * 1024, device=dev) if on_card else None
+
+    def group(name):
+        return "kernel 4" if "quant_pack_kernel" in name else "other"
+
+    for nbytes in QUANT_TIMED if on_card else ():
+        n = nbytes // 4
+        x = random_tensor((n,), torch.float32, dev, 23)
+        # a call's time from CUDA events: the wrapper's host work sets it
+        # while the kernel is shorter
+        call_ms = time_ms(lambda: quantized.quant_pack(x), 50)
+        # the kernel's own time on the card, from the profiler
+        _, warm = kernel_ms_by_group(lambda: quantized.quant_pack(x), 20,
+                                     group, dev)
+        _, cold = kernel_ms_by_group(
+            lambda: (flush.zero_(), quantized.quant_pack(x)), 20, group, dev)
+        ms = cold["kernel 4"]
+        plain_ms = time_ms(lambda: quantized.quant_pack_plain(x), 10)
+        bound = quant_frame_bytes(n) / HBM_BYTES_PER_S * 1e3
+        times[nbytes] = dict(ms=ms, warm_l2_ms=warm["kernel 4"],
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=bound, bytes=quant_frame_bytes(n))
+        log(f"  kernel 4, {nbytes} B per rank: {ms:.4f} ms on the card "
+            f"from device memory ({warm['kernel 4']:.4f} ms with its input "
+            f"in L2; {call_ms:.4f} ms per call by CUDA events), bound "
+            f"{bound:.4f} ms (bytes: {quant_frame_bytes(n)} B), "
+            f"{bound / ms:.3f} of it; plain {plain_ms:.4f} ms")
+    return cases + 1, worst, times
+
+
+def path_g(dev, on_card):
+    """Phase 24: path (g), 4 ranks on 'r0,r1|r2,r3' through the port's
+    launcher, the leg forced, exact and quantized.  Every rank holds its
+    result to the simulators bit for bit and the ranks agree (the ranks'
+    program, ``benchmarks/ici_leg.py``, fails the job otherwise); here the
+    launches of kernels 3 and 4 per call are checked, and the timed
+    payloads beside the native hierarchical ring with the leg off."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    counts = G_COUNTS if on_card else G_COUNTS[:3]
+    sizes = G_SIZES if on_card else (64 * 1024,)
+    jobs = {}
+    for label in ("hring+ici", "hring+q+ici"):
+        quant = "+q" in label
+        t0 = time.perf_counter()
+        rec = ici_leg.run_job(label, device=str(dev), algos=("hring", "htree"),
+                              check_counts=counts, sizes=sizes,
+                              calls=G_CALLS, beside=True, timeout=300)
+        secs = time.perf_counter() - t0
+        want = {"fused_ring": int(on_card), "quant_pack": int(on_card and quant)}
+        if not rec["leg"] or rec["quant"] is not quant:
+            fail(f"path (g) {label}: the leg was not active as asked")
+        for c in rec["checks"]:
+            if c["launches"] != want:
+                fail(f"path (g) {label} {c['algo']} count={c['count']}: "
+                     f"launched {c['launches']} per call, expected {want}")
+            if c["check"] != "bits":
+                fail(f"path (g) {label}: not held bit for bit")
+        for r in rec["records"]:
+            if r["launches_per_call"] != want:
+                fail(f"path (g) {label} {r['bytes']} B: launched "
+                     f"{r['launches_per_call']} per call, expected {want}")
+            log(f"  {label}, {r['bytes']} B per rank: {r['ms']:.3f} ms per "
+                f"call ({r['eff_GBps']:.3f} GB/s), leg off "
+                f"{r['leg_off_ms']:.3f} ms; phases (ms): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r["phases_ms"].items()))
+        worst = max(c["rel_err"] for c in rec["checks"])
+        log(f"  {label}: {len(rec['checks'])} checks bit for bit on every "
+            f"rank (worst {worst:.3e} of the exact sum), job {secs:.1f} s, "
+            f"kernel launches {rec['launches']}, contexts "
+            f"{max(rec['ctx_seconds']):.2f} s, comm "
+            f"{max(rec['comm_seconds']):.2f} s, tiers {rec['tiers']}")
+        rec["job_seconds"] = secs
+        jobs[label] = rec
+    return jobs
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -1345,7 +1532,8 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17 and 19-21 on the "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21, 23 and 24 "
+                         "on the "
                          "CPU, plain versions, small size; prints no result "
                          "line")
     args = ap.parse_args(argv)
@@ -1363,8 +1551,11 @@ def main(argv=None):
         kind = torch.cuda.get_device_name(0)
         log(f"card: {card}")
         t0 = time.perf_counter()
-        build_secs = _build.build_all(KERNELS)
-        log(f"build: {len(KERNELS)} kernels in parallel in "
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            transport = pool.submit(timed_build)
+            build_secs = _build.build_all(KERNELS)
+            build_secs["transport"] = transport.result()
+        log(f"build: {len(KERNELS)} sources and the transport in parallel in "
             f"{time.perf_counter() - t0:.2f} s")
         log_build("sw_step", build_secs)
     else:
@@ -1409,10 +1600,13 @@ def main(argv=None):
             log_build(name, build_secs)
 
     log(f"phase 7: hop kernel vs hop_plain [{card}]")
-    check_hop(dev)
+    hop_worst = check_hop(dev)
     log(f"phase 8: fused ring vs fused_ring_allreduce_plain [{card}]")
-    check_ring(dev)
+    ring_worst = check_ring(dev, on_card)
     ring_t = time_ring(dev) if on_card else None
+    # path (g)'s island fold: m = 2 rows of its timed payloads
+    ring_g = {b: time_ring(dev, n=2, count=b // 4) for b in G_SIZES} \
+        if on_card else None
 
     max_bytes = SWEEP_MAX_BYTES if on_card else 1024 * 1024
     log(f"phase 9: path (b), the allreduce sweep to {max_bytes} B per rank "
@@ -1428,7 +1622,7 @@ def main(argv=None):
         log("phase 11: build of the alltoall kernel")
         log_build("alltoall", build_secs)
     log(f"phase 12: alltoall kernel vs alltoall_plain [{card}]")
-    check_alltoall(dev, on_card)
+    a2a_worst = check_alltoall(dev, on_card)
     size = SPECTRAL_N if on_card else 32
     a2a_t = time_alltoall(dev) if on_card else None
     log(f"phase 13: path (c), the {size}^3 spectral Poisson solve at n = "
@@ -1461,6 +1655,19 @@ def main(argv=None):
     log(f"phase 21: path (f), the GPT-2 124M train step at "
         f"{', '.join(map(str, gpt_bench.MESHES))} [{card}]")
     f_runs, f_launches, f_times = path_f(dev, on_card, card)
+    if on_card:
+        log("phase 22: build of kernel 4 and of the transport")
+        log_build("quant_pack", build_secs)
+        log(f"  native/tpucomm.cc (g++, transport only): "
+            f"{build_secs['transport']:.2f} s")
+    else:
+        log(f"phase 22: build of the transport: {timed_build():.2f} s")
+    log(f"phase 23: kernel 4 vs quant_pack_plain and the transport's codec "
+        f"[{card}]")
+    q_cases, q_worst, q_times = check_quant_pack(dev, on_card)
+    log(f"phase 24: path (g), the hierarchical allreduce of 4 ranks on "
+        f"{ici_leg.FAKE_HOSTS} with the leg on the card [{card}]")
+    g_jobs = path_g(dev, on_card)
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
@@ -1469,7 +1676,7 @@ def main(argv=None):
         "name": "hop", "route": "cuda",
         "source": "mpi4jax_tpu_torch/csrc/hop.cu",
         "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:74",
-        "launches": a["launches"]["hop"], "max_abs_err": 0.0,
+        "launches": a["launches"]["hop"], "max_abs_err": hop_worst,
         "ok": True, "ms": hop_t["y"]["ms"], "plain_ms": hop_t["y"]["plain_ms"],
         "bound_ms": hop_t["y"]["bound_ms"], "bound_by": "bytes",
         "library_ms": hop_t["y"]["library_ms"],
@@ -1485,11 +1692,13 @@ def main(argv=None):
         "name": "fused_ring", "route": "cuda",
         "source": "mpi4jax_tpu_torch/csrc/fused_ring.cu",
         "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:660",
-        "launches": b_launches["fused_ring"], "max_abs_err": 0.0,
+        "launches": b_launches["fused_ring"], "max_abs_err": ring_worst,
         "ok": True, "ms": ring_t["ms"], "plain_ms": ring_t["plain_ms"],
         "bound_ms": ring_t["bound_ms"], "bound_by": "bytes",
         "library_ms": ring_t["library_ms"], "library": "x.sum(0)",
         "at": "n=4, 16 MiB per rank",
+        "path_g_island_fold": {f"n=2, {b} B per rank": t
+                               for b, t in ring_g.items()},
         "sweep": [{k: r[k] for k in ("ranks", "bytes", "us", "arm",
                                      "eff_GBps_per_chip", "bound_us",
                                      "sum0_us")} for r in recs],
@@ -1499,7 +1708,7 @@ def main(argv=None):
         "name": "alltoall", "route": "cuda",
         "source": "mpi4jax_tpu_torch/csrc/alltoall.cu",
         "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:499",
-        "launches": c_launches, "max_abs_err": 0.0, "ok": True,
+        "launches": c_launches, "max_abs_err": a2a_worst, "ok": True,
         "ms": a2a_t["ms"], "plain_ms": a2a_t["plain_ms"],
         "bound_ms": a2a_t["bound_ms"], "bound_by": "bytes",
         "library_ms": a2a_t["library_ms"],
@@ -1571,9 +1780,31 @@ def main(argv=None):
         })
     bwd_rows[0]["path_e"] = e_runs
     bwd_rows[0]["path_f"] = f_runs
+    ring_row["launches_path_g"] = sum(
+        rec["launches"]["fused_ring"] for rec in g_jobs.values())
+    t16, t64 = q_times[QUANT_TIMED[0]], q_times[QUANT_TIMED[1]]
+    quant_row = {
+        "name": "quant_pack", "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/quant_pack.cu",
+        "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:862",
+        "launches": g_jobs["hring+q+ici"]["launches"]["quant_pack"],
+        "max_abs_err": q_worst, "ok": True, "ms": t16["ms"],
+        "warm_l2_ms": t16["warm_l2_ms"], "call_ms": t16["call_ms"],
+        "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library": "none: no single PyTorch call produces the "
+                   "per-256-block frame",
+        "at": "16 MiB per rank (4Mi f32), path (g)'s island sum",
+        "bytes": t16["bytes"], "at_64MiB": t64, "edge_cases": q_cases,
+        "path_g": {label: {k: rec[k] for k in (
+            "leg", "quant", "tiers", "launches", "ctx_seconds",
+            "comm_seconds", "job_seconds", "records")}
+            for label, rec in g_jobs.items()},
+        "card": card,
+    }
     log(f"card: {card}")
     print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row,
-                                  flash_row, *bwd_rows]}))
+                                  flash_row, *bwd_rows, quant_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,12 @@ Ported so far:
   (``csrc/flash_bwd.cu``) per step, dk and dv riding the ring home;
 - the dp x tp x sp GPT (``models/transformer.py``), whose train step runs
   those three kernels in every layer, and its CLI
-  (``examples/train_gpt.py``).
+  (``examples/train_gpt.py``);
+- the world tier as far as the hierarchical f32 allreduce
+  (``runtime/``: the launcher, ``WorldComm`` and the native transport's
+  binding; ``topo/``: discovery, the simulators and the intra-island leg,
+  which folds each island with the fused ring kernel and packs the
+  quantized wire frame with ``csrc/quant_pack.cu``).
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.

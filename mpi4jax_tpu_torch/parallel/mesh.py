@@ -195,19 +195,23 @@ def current_comm() -> Optional[CommBase]:
 
 
 def get_default_comm() -> CommBase:
-    """The innermost active comm.
+    """The innermost active comm, else the process's world comm when it
+    was launched as a rank of a world job.
 
-    Only the mesh tier is ported: outside ``spmd`` or a ``with comm:``
-    block there is no default (the JAX package's world communicator belongs
-    to the world tier, which is queued in ROADMAP.md).
+    Outside ``spmd``, a ``with comm:`` block or a world job there is no
+    default: the JAX package's default mesh over every device has no
+    counterpart on one card.
     """
     comm = current_comm()
-    if comm is None:
-        raise RuntimeError(
-            "no communicator: pass comm=, or call inside spmd(...) or a "
-            "'with comm:' block (the world tier is not ported yet)"
-        )
-    return comm
+    if comm is not None:
+        return comm
+    from ..runtime import transport
+
+    if transport.in_world():
+        return transport.get_world_comm()
+    raise RuntimeError(
+        "no communicator: pass comm=, or call inside spmd(...), a "
+        "'with comm:' block or a world job")
 
 
 def make_mesh(n: Optional[int] = None, axis: str = _DEFAULT_AXIS,

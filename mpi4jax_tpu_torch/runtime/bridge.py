@@ -1,0 +1,361 @@
+"""ctypes binding of the native transport, for the port's world tier.
+
+The counterpart of ``mpi4jax_tpu/runtime/bridge.py``, for the calls that
+the hierarchical f32 allreduce and its intra-island leg make: comm
+creation and its topology (``comm_init``, ``split``, ``comm_finalize``),
+``barrier``, ``bcast``, ``allgather``, ``allreduce`` with a forced
+algorithm, the leg's hook in front of the native allreduce, and the
+transport's own int8 codec (``quant_pack``).  Tuning, observability, live
+re-tuning and plan execution are not ported (ROADMAP.md).
+
+The build.  The transport is ``native/tpucomm.cc``, built transport-only
+(no XLA FFI) with the JAX package's flags (``bridge.py:45-52`` there) into
+``build/mpi4jax_tpu_torch/libtpucomm-<hash>.so`` at first use; the hash
+covers the compiled source, the header and the flags.  One change is made
+to the source, in a generated copy under ``build/``: the anonymous struct
+of the io_uring probe (``tpucomm.cc:1384-1387``) puts a struct with a
+flexible array member, ``io_uring_probe``, before another member, which
+gcc 12 rejects ("flexible array member ... not at end of struct") with
+newer kernel headers.  The copy replaces only that struct by one of the
+same size and layout: a zeroed byte buffer of ``sizeof(io_uring_probe) +
+64 * sizeof(io_uring_probe_op)`` bytes, read through a reference
+``p`` to the header and a pointer ``ops`` to the 64 op slots that follow
+it, so the code after it reads ``pr.p`` and ``pr.ops`` as before and the
+probe syscall fills the same bytes.  The build fails loudly when that text
+is not found; io_uring stays built in.  Concurrent ranks build once: a
+file lock guards the build.
+
+Fail-fast, as in the JAX package: a native call that fails prints
+``tpucomm_<Op> returned error code N`` with the transport's reason,
+poisons the peers' sockets and exits the process with code 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ..utils import config
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+NATIVE_DIR = _REPO_ROOT / "native"
+BUILD_DIR = _REPO_ROOT / "build" / "mpi4jax_tpu_torch"
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
+LINK_FLAGS = ["-lrt"]
+
+# the one substitution of the generated copy (see the module docstring)
+PROBE_STRUCT = """    struct {
+      io_uring_probe p;   /* ops[0] flexible member lands on ops below */
+      io_uring_probe_op ops[64];
+    } pr{};"""
+PROBE_BUFFER = """    struct {
+      alignas(io_uring_probe) unsigned char raw[sizeof(io_uring_probe) +
+                                                64 * sizeof(io_uring_probe_op)] = {};
+      io_uring_probe& p = *reinterpret_cast<io_uring_probe*>(raw);
+      io_uring_probe_op* ops =
+          reinterpret_cast<io_uring_probe_op*>(raw + sizeof(io_uring_probe));
+    } pr{};"""
+
+#: native wire codes (native/tpucomm.h): the port's world allreduce is
+#: f32 SUM
+F32, SUM = 11, 0
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def patched_source() -> str:
+    """``native/tpucomm.cc`` with the probe struct replaced; raises when
+    the struct is not found exactly once."""
+    src = (NATIVE_DIR / "tpucomm.cc").read_text()
+    if src.count(PROBE_STRUCT) != 1:
+        raise RuntimeError(
+            "native/tpucomm.cc: the io_uring probe struct that the port's "
+            "build replaces was not found exactly once; update "
+            "mpi4jax_tpu_torch/runtime/bridge.py:PROBE_STRUCT")
+    return src.replace(PROBE_STRUCT, PROBE_BUFFER)
+
+
+def library_path() -> Path:
+    """Where the transport built from the current source lives."""
+    src = patched_source().encode()
+    header = (NATIVE_DIR / "tpucomm.h").read_bytes()
+    digest = hashlib.sha256(
+        src + header + " ".join(CXX_FLAGS + LINK_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libtpucomm-{digest[:16]}.so"
+
+
+def build() -> Path:
+    """Build the transport if it is not built yet; returns its path.  A
+    failed compile raises with g++'s messages."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "libtpucomm.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():  # another process built it meanwhile
+            return target
+        src = target.with_suffix(".cc")
+        src.write_text(patched_source())
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, f"-I{NATIVE_DIR}",
+               "-o", str(tmp), str(src), *LINK_FLAGS]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building the native transport failed:\n{proc.stdout}")
+        os.replace(tmp, target)
+    return target
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded transport, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    i64, c_int, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+    for name, res, args in (
+            ("tpucomm_init", i64, [c_int, c_int, c_int, ctypes.c_char_p]),
+            ("tpucomm_finalize", None, [i64]),
+            ("tpucomm_rank", c_int, [i64]),
+            ("tpucomm_size", c_int, [i64]),
+            ("tpucomm_split", i64, [i64, c_int, c_int]),
+            ("tpucomm_set_topology", c_int,
+             [i64, ctypes.POINTER(ctypes.c_int32), c_int, i64, i64]),
+            ("tpucomm_barrier", c_int, [i64]),
+            ("tpucomm_bcast", c_int, [i64, ptr, i64, c_int]),
+            ("tpucomm_allgather_algo", c_int, [i64, ptr, i64, ptr, c_int]),
+            ("tpucomm_allreduce_algo", c_int,
+             [i64, ptr, ptr, i64, c_int, c_int, c_int]),
+            ("tpucomm_coll_algo_for", c_int, [i64, c_int, i64]),
+            ("tpucomm_quant_packed_bytes", i64, [i64]),
+            ("tpucomm_quant_pack", c_int, [ptr, i64, c_int, ptr]),
+            ("tpucomm_last_error", ctypes.c_char_p, []),
+            ("tpucomm_abort_all", None, [])):
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    _lib = lib
+    return lib
+
+
+def _abort(opname: str, rc: int):
+    lib = get_lib()
+    text = (lib.tpucomm_last_error() or b"").decode(errors="replace")
+    print(f"tpucomm_{opname} returned error code {rc}"
+          + (f": {text}" if text else ""), file=sys.stderr, flush=True)
+    # poison every peer socket so the group tears down within one deadline
+    lib.tpucomm_abort_all()
+    os._exit(1)
+
+
+def _check(opname: str, rc: int):
+    if rc != 0:
+        _abort(opname, rc)
+
+
+def _contig(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a if a.flags.c_contiguous else a.copy(order="C")
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+# ---------------- communicators and their topology ----------------
+
+#: per world handle: the topology sub-comms' handles (finalized before the
+#: world: they borrow its sockets) and their roles, which the leg reads
+_topo_handles: dict = {}
+_topo_subcomms: dict = {}
+
+
+def comm_init(rank: int, size: int, coord: str, device=None) -> int:
+    """Connect this rank's world comm (collective over the world), run
+    topology discovery and return the native handle.  ``device`` is
+    where the world's tensors live: the leg runs its kernels there."""
+    lib = get_lib()
+    _, _, port = coord.partition(":")
+    hosts = os.environ.get("MPI4JAX_TPU_HOSTS", "")
+    handle = lib.tpucomm_init(rank, size, int(port or 49817), hosts.encode())
+    if handle == 0:
+        _abort("init", 1)
+    if size > 1 and config.topo_mode() != "off":
+        _install_topology(lib, handle, rank, size, device)
+    return handle
+
+
+def _install_topology(lib, handle, rank: int, size: int, device):
+    """Discovery, the sub-comms of a multi-island world, and the native
+    install of the map.  Collective.  Returns the Topology, or None when
+    discovery failed (the comm then stays flat, with a warning)."""
+    from .. import topo
+
+    try:
+        t = topo.discover(handle, rank, size, device)
+    except RuntimeError as e:
+        import warnings
+
+        warnings.warn(f"topology discovery failed; transport stays flat: "
+                      f"{e}")
+        return None
+    intra_h = leader_h = None
+    if t.multi:
+        # both splits are collective over the world: every rank calls both
+        my_island = t.island_of[rank]
+        intra_h = split(handle, my_island, rank)
+        leader_h = split(handle, 0 if rank == t.leaders[my_island] else -1,
+                         rank)
+        if len(t.islands[my_island]) == 1 and intra_h is not None:
+            # a singleton island's intra comm is never used
+            comm_finalize(intra_h)
+            intra_h = None
+    arr = (ctypes.c_int32 * size)(*t.island_of)
+    if lib.tpucomm_set_topology(handle, arr, size, intra_h or 0,
+                                leader_h or 0) != 0:
+        import warnings
+
+        warnings.warn("native topology install was rejected; hierarchical "
+                      "schedules stay degraded to their flat twins")
+    subs = [h for h in (intra_h, leader_h) if h is not None]
+    if subs:
+        _topo_handles[int(handle)] = subs
+        _topo_subcomms[int(handle)] = {
+            "topology": t, "rank": rank, "island": t.island_of[rank],
+            "intra": intra_h, "leader": leader_h, "device": device,
+        }
+    topo._register(handle, t)
+    return t
+
+
+def comm_finalize(handle) -> None:
+    """Close a comm; its topology sub-comms go first."""
+    from .. import topo
+
+    _topo_subcomms.pop(int(handle), None)
+    for sub in _topo_handles.pop(int(handle), []):
+        get_lib().tpucomm_finalize(sub)
+    topo._forget(handle)
+    get_lib().tpucomm_finalize(handle)
+
+
+def split(handle, color: int, key: int):
+    """Collective sub-communicator creation; None when color < 0."""
+    h = get_lib().tpucomm_split(handle, int(color), int(key))
+    if h == 0:
+        _abort("Split", 1)
+    return None if h == -1 else h
+
+
+def comm_rank(handle) -> int:
+    return get_lib().tpucomm_rank(handle)
+
+
+def comm_size(handle) -> int:
+    return get_lib().tpucomm_size(handle)
+
+
+def coll_algo_for(handle, op_kind: int, nbytes: int) -> int:
+    """The algorithm code the engine would run for (comm, op, bytes)."""
+    code = get_lib().tpucomm_coll_algo_for(handle, int(op_kind), int(nbytes))
+    if code < 0:
+        raise ValueError(f"bad comm handle {handle}")
+    return code
+
+
+# ---------------- collectives on contiguous numpy buffers ----------------
+
+
+def barrier(handle):
+    _check("Barrier", get_lib().tpucomm_barrier(handle))
+
+
+def bcast(handle, buf, root) -> np.ndarray:
+    out = _contig(buf).copy()
+    _check("Bcast", get_lib().tpucomm_bcast(handle, _ptr(out), out.nbytes,
+                                            int(root)))
+    return out
+
+
+def allgather_raw(handle, buf: np.ndarray, out: np.ndarray):
+    """Allgather of contiguous ``buf`` into ``out`` (the engine's
+    schedule)."""
+    _check("Allgather", get_lib().tpucomm_allgather_algo(
+        handle, _ptr(buf), buf.nbytes, _ptr(out), 0))
+
+
+def allgather(handle, buf, size: int) -> np.ndarray:
+    buf = _contig(buf)
+    out = np.empty((size,) + buf.shape, buf.dtype)
+    allgather_raw(handle, buf, out)
+    return out
+
+
+def _ici_leg_hook(handle, buf, out, dtype_code, op_code, algo) -> bool:
+    """The leg's probe in front of the native allreduce: False in two dict
+    lookups on a comm without topology sub-comms or a call that is not
+    f32 SUM; the full gate is ``topo._ici_leg.maybe_allreduce``."""
+    if int(handle) not in _topo_subcomms:
+        return False
+    if dtype_code != F32 or op_code != SUM:
+        return False
+    from ..topo import _ici_leg
+
+    return _ici_leg.maybe_allreduce(handle, buf, out, dtype_code, op_code,
+                                    algo)
+
+
+def allreduce_raw(handle, buf: np.ndarray, out: np.ndarray, dtype_code: int,
+                  op_code: int, algo: Optional[int] = None):
+    """Allreduce of contiguous ``buf`` into ``out``; ``algo`` is the
+    algorithm code forced for this call (None or 0: the engine's choice).
+    The intra-island leg (``topo/_ici_leg.py``) takes an eligible call
+    before the native paths."""
+    if _ici_leg_hook(handle, buf, out, dtype_code, op_code, algo):
+        return
+    _check("Allreduce", get_lib().tpucomm_allreduce_algo(
+        handle, _ptr(buf), _ptr(out), buf.size, int(dtype_code),
+        int(op_code), int(algo or 0)))
+
+
+def allreduce(handle, buf, op_code: int, algo: Optional[int] = None
+              ) -> np.ndarray:
+    """The f32 allreduce of ``buf`` into a new array."""
+    buf = _contig(buf)
+    if buf.dtype != np.float32:
+        raise TypeError(f"the port's world allreduce is float32, got "
+                        f"{buf.dtype}")
+    out = np.empty_like(buf)
+    allreduce_raw(handle, buf, out, F32, op_code, algo=algo)
+    return out
+
+
+# ---------------- the transport's int8 wire codec ----------------
+
+
+def quant_packed_bytes(count: int) -> int:
+    return int(get_lib().tpucomm_quant_packed_bytes(int(count)))
+
+
+def quant_pack(buf) -> np.ndarray:
+    """The frame of an f32 array through the transport's own codec (the
+    bytes its quantized schedules put on the wire)."""
+    buf = _contig(buf)
+    if buf.dtype != np.float32:
+        raise TypeError(f"quant_pack takes float32, got {buf.dtype}")
+    out = np.empty(quant_packed_bytes(buf.size), np.int8)
+    rc = get_lib().tpucomm_quant_pack(_ptr(buf), buf.size, F32, _ptr(out))
+    if rc != 0:
+        raise TypeError("the transport refused float32 for its codec")
+    return out

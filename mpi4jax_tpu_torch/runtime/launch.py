@@ -1,0 +1,171 @@
+"""Launch a program as N world ranks, one process each.
+
+    python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
+        [--port P] [--timeout S] prog.py [args...]
+
+The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
+rank runs ``prog.py`` with ``MPI4JAX_TPU_RANK`` / ``SIZE`` / ``COORD`` /
+``JOBID`` set (and ``MPI4JAX_TPU_FAKE_HOSTS`` under ``--fake-hosts``);
+``transport.get_world_comm()`` then returns its ``WorldComm``.  The ranks
+share this host; on a machine with one card they all use it.
+
+- The base port defaults to a block of N free ports on this host, so
+  several jobs can run side by side.
+- Fail-fast: when a rank exits non-zero the others are sent SIGTERM, then
+  SIGKILL after a grace period (``MPI4JAX_TPU_LAUNCH_GRACE_S``, default
+  5 s), and the launcher exits with that rank's code, naming it.
+- ``--timeout S``: after S seconds the whole group is reaped the same way
+  and the launcher exits 124.  SIGTERM to the launcher reaps the group and
+  exits 143.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import subprocess
+import sys
+import time
+import uuid
+
+from .transport import _free_port_block
+
+
+def _grace_s() -> float:
+    try:
+        return max(0.1, float(os.environ.get("MPI4JAX_TPU_LAUNCH_GRACE_S",
+                                             "5")))
+    except ValueError:
+        return 5.0
+
+
+class _Terminated(Exception):
+    """Raised by the SIGTERM handler to unwind into the reap."""
+
+
+def _terminate_group(procs):
+    """SIGTERM every live rank, wait up to the grace period, SIGKILL the
+    rest, and reap every process."""
+    grace = _grace_s()
+    live = [p for p in procs if p.poll() is None]
+    for p in live:
+        try:
+            p.terminate()
+        except OSError:
+            pass
+    deadline = time.time() + grace
+    for p in live:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            try:
+                p.kill()
+            except OSError:
+                pass
+            p.wait()
+
+
+def rank_env(rank: int, size: int, base_port: int, jobid: str,
+             fake_hosts=None) -> dict:
+    """The environment of one rank."""
+    env = dict(os.environ)
+    env["MPI4JAX_TPU_RANK"] = str(rank)
+    env["MPI4JAX_TPU_SIZE"] = str(size)
+    env["MPI4JAX_TPU_COORD"] = f"127.0.0.1:{base_port}"
+    env["MPI4JAX_TPU_JOBID"] = jobid
+    if fake_hosts:
+        env["MPI4JAX_TPU_FAKE_HOSTS"] = fake_hosts
+    return env
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m mpi4jax_tpu_torch.runtime.launch",
+        description="run a program as N world ranks")
+    ap.add_argument("-n", "--np", type=int, required=True,
+                    help="number of ranks")
+    ap.add_argument("--port", type=int, default=None,
+                    help="base TCP port (rank r listens on port + r; "
+                         "default: a free block on this host)")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="reap the whole group after this many seconds "
+                         "and exit 124")
+    ap.add_argument("--fake-hosts", default=None, metavar="SPEC",
+                    help="virtual host partition ('r0,r1|r2,r3': ranks 0-1 "
+                         "and 2-3 form two islands), exported to every "
+                         "rank as MPI4JAX_TPU_FAKE_HOSTS")
+    ap.add_argument("prog", help="python program to run")
+    ap.add_argument("args", nargs=argparse.REMAINDER)
+    args = ap.parse_args(argv)
+    if args.np < 1:
+        ap.error("-n must be at least 1")
+
+    base_port = args.port or _free_port_block(args.np)
+    # job-unique token for the transport's shared-memory names
+    jobid = uuid.uuid4().hex[:16]
+    procs = []
+    in_spawn = [True]
+    deferred = []
+
+    def _on_sigterm(signum, frame):
+        # during the spawn loop a signal is deferred, so the reap never
+        # misses a rank that was just forked
+        if in_spawn[0]:
+            deferred.append(_Terminated)
+        else:
+            raise _Terminated
+
+    old_term = signal.signal(signal.SIGTERM, _on_sigterm)
+    exit_code = 0
+    first_fail = None
+    t_start = time.time()
+    try:
+        for rank in range(args.np):
+            procs.append(subprocess.Popen(
+                [sys.executable, args.prog, *args.args],
+                env=rank_env(rank, args.np, base_port, jobid,
+                             args.fake_hosts)))
+        in_spawn[0] = False
+        if deferred:
+            raise deferred[0]
+        pending = dict(enumerate(procs))
+        while pending:
+            for rank, p in list(pending.items()):
+                rc = p.poll()
+                if rc is None:
+                    continue
+                del pending[rank]
+                if rc != 0 and first_fail is None:
+                    first_fail = (rank, rc)
+            if first_fail is not None:
+                exit_code = first_fail[1]
+                _terminate_group(list(pending.values()))
+                break
+            if args.timeout is not None \
+                    and time.time() - t_start > args.timeout:
+                print(f"launch: watchdog: wall-clock timeout after "
+                      f"{args.timeout:g} s; terminating rank(s) "
+                      f"{sorted(pending)}", file=sys.stderr, flush=True)
+                _terminate_group(list(pending.values()))
+                exit_code = 124
+                break
+            time.sleep(0.02)
+    except (_Terminated, KeyboardInterrupt) as e:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        _terminate_group(procs)
+        exit_code = 143 if isinstance(e, _Terminated) else 130
+    except BaseException:
+        # e.g. a failed spawn: no rank outlives the launcher
+        _terminate_group(procs)
+        raise
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+    if first_fail is not None:
+        print(f"launch: post-mortem: rank {first_fail[0]} failed first "
+              f"(exit code {first_fail[1]})", file=sys.stderr, flush=True)
+    return exit_code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

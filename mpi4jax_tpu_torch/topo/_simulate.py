@@ -1,0 +1,147 @@
+"""Numpy models of the hierarchical allreduce's exact f32 arithmetic.
+
+A copy of ``mpi4jax_tpu/topo/_simulate.py:34-212`` for f32 SUM: each
+function replays the association of a native schedule, so a world run is
+held to it bit for bit.
+
+- ``simulate_ring_sum``: the chunked ring (native ``ring_allreduce``, and
+  the fused ring kernel, ``csrc/fused_ring.cu``);
+- ``simulate_rd_sum``: recursive doubling with the non-power-of-two fold;
+- ``simulate_hring_sum`` / ``simulate_htree_sum``: the island sums, then
+  the ring or recursive doubling over the leaders.  ``intra="member"`` is
+  the native intra fold (island members in order), ``intra="ring"`` the
+  intra-island leg's ring (``topo/_ici_leg.py``);
+- ``simulate_ici_q_sum``: the quantized leg: the ring island sums, each
+  packed once with the int8 codec, dequantized and folded in island order.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+
+from ..ops import quantized as _q
+
+
+def _chunk_lo(count: int, size: int, i: int) -> int:
+    per = (count + size - 1) // size
+    return min(per * i, count)
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def simulate_ring_sum(inputs: Sequence[np.ndarray]) -> np.ndarray:
+    """The chunked ring allreduce's f32 SUM: the reduce-scatter folds each
+    chunk in ring arrival order, the allgather copies bytes; every rank
+    holds the returned bits."""
+    n = len(inputs)
+    if n == 1:
+        return _f32(inputs[0]).copy()
+    bufs = [_f32(v).copy() for v in inputs]
+    count = bufs[0].size
+    for step in range(n - 1):
+        # every rank sends before it receives within a step: snapshot the
+        # outgoing chunks, then fold
+        outgoing = []
+        for r in range(n):
+            sc = (r - step) % n
+            lo, hi = _chunk_lo(count, n, sc), _chunk_lo(count, n, sc + 1)
+            outgoing.append((r, sc, bufs[r][lo:hi].copy()))
+        for r, sc, data in outgoing:
+            dst = (r + 1) % n
+            lo, hi = _chunk_lo(count, n, sc), _chunk_lo(count, n, sc + 1)
+            bufs[dst][lo:hi] = (bufs[dst][lo:hi] + data).astype(np.float32)
+    out = np.empty_like(bufs[0])
+    for c in range(n):
+        # chunk c is complete at rank (c-1) % n
+        owner = (c - 1) % n
+        lo, hi = _chunk_lo(count, n, c), _chunk_lo(count, n, c + 1)
+        out[lo:hi] = bufs[owner][lo:hi]
+    return out
+
+
+def simulate_rd_sum(inputs: Sequence[np.ndarray]) -> np.ndarray:
+    """Recursive doubling's f32 SUM, with the non-power-of-two fold."""
+    n = len(inputs)
+    if n == 1:
+        return _f32(inputs[0]).copy()
+    bufs = [_f32(v).copy() for v in inputs]
+    pof2 = 1
+    while pof2 * 2 <= n:
+        pof2 *= 2
+    rem = n - pof2
+    participants = {}  # newrank -> rank
+    for r in range(n):
+        if r < 2 * rem:
+            if r % 2 == 1:
+                # the odd member folds its even neighbour
+                bufs[r] = (bufs[r] + bufs[r - 1]).astype(np.float32)
+                participants[r // 2] = r
+        else:
+            participants[r - rem] = r
+    mask = 1
+    while mask < pof2:
+        snapshot = {nr: bufs[pr].copy() for nr, pr in participants.items()}
+        for nr, pr in participants.items():
+            bufs[pr] = (bufs[pr] + snapshot[nr ^ mask]).astype(np.float32)
+        mask <<= 1
+    for r in range(2 * rem):
+        if r % 2 == 0:
+            bufs[r] = bufs[r + 1].copy()
+    return bufs[0]
+
+
+def _island_sums(inputs: Sequence[np.ndarray],
+                 islands: Sequence[Sequence[int]]) -> List[np.ndarray]:
+    """The native intra fold: island members in order, in f32."""
+    sums = []
+    for members in islands:
+        acc = _f32(inputs[members[0]]).copy()
+        for m in members[1:]:
+            acc = (acc + _f32(inputs[m])).astype(np.float32)
+        sums.append(acc)
+    return sums
+
+
+def _intra_sums(inputs: Sequence[np.ndarray],
+                islands: Sequence[Sequence[int]],
+                intra: str) -> List[np.ndarray]:
+    if intra == "member":
+        return _island_sums(inputs, islands)
+    if intra == "ring":
+        return [simulate_ring_sum([inputs[m] for m in members])
+                for members in islands]
+    raise ValueError(f"unknown intra association {intra!r} "
+                     "(expected 'member' or 'ring')")
+
+
+def simulate_hring_sum(inputs: Sequence[np.ndarray],
+                       islands: Sequence[Sequence[int]],
+                       intra: str = "member") -> np.ndarray:
+    """The native ``hring`` f32 SUM: ``inputs`` one array per world rank,
+    ``islands`` the member lists in island order (``Topology.islands``);
+    the ring over the island sums."""
+    return simulate_ring_sum(_intra_sums(inputs, islands, intra))
+
+
+def simulate_htree_sum(inputs: Sequence[np.ndarray],
+                       islands: Sequence[Sequence[int]],
+                       intra: str = "member") -> np.ndarray:
+    """The native ``htree`` f32 SUM: recursive doubling over the island
+    sums."""
+    return simulate_rd_sum(_intra_sums(inputs, islands, intra))
+
+
+def simulate_ici_q_sum(inputs: Sequence[np.ndarray],
+                       islands: Sequence[Sequence[int]]) -> np.ndarray:
+    """The quantized leg's f32 SUM: each ring island sum packed once,
+    dequantized, and folded in island order (no re-quantization)."""
+    acc = None
+    for s in _intra_sums(inputs, islands, "ring"):
+        scales, codes = _q.quant_pack_ref(s)
+        d = _q.quant_unpack_ref(scales, codes)
+        acc = d if acc is None else (acc + d).astype(np.float32)
+    return acc

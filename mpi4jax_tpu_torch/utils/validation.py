@@ -38,7 +38,8 @@ def op_context(op_name: str, comm=None, x=None) -> str:
     """`` [op, mesh axes (...), dtype ..., shape (...)]``."""
     bits = [op_name]
     if comm is not None:
-        bits.append(f"mesh axes {comm.axes!r}")
+        bits.append(f"mesh axes {comm.axes!r}" if hasattr(comm, "axes")
+                    else f"world comm of {comm.size()} ranks")
     if isinstance(x, torch.Tensor):
         bits.append(f"dtype {_dtypes.dtype_name(x.dtype)}")
         bits.append(f"shape {tuple(x.shape)}")
@@ -50,16 +51,27 @@ def fail(msg: str, *, op: str, comm=None, x=None, exc=None):
     raise (exc or ValidationError)(msg + op_context(op, comm, x))
 
 
-def resolve_comm(comm):
-    """``comm``, or the ambient one; anything but a ``MeshComm`` raises."""
+def resolve_comm(comm, *, world: bool = False):
+    """``comm``, or the ambient one.  A ``WorldComm`` raises
+    ``NotImplementedError`` unless the op carries the world tier
+    (``world=True``: the allreduce); anything else but a ``MeshComm``
+    raises ``TypeError``."""
     from ..parallel.mesh import MeshComm, get_default_comm
+    from ..runtime.transport import WorldComm
 
     if comm is None:
         comm = get_default_comm()
+    if isinstance(comm, WorldComm):
+        if not world:
+            raise NotImplementedError(
+                "this op is not ported to the world tier yet: a world comm "
+                "carries only the f32 SUM allreduce with a forced algo= "
+                "(ROADMAP.md §1 item 6)")
+        return comm
     if not isinstance(comm, MeshComm):
         raise TypeError(
-            "comm must be a mpi4jax_tpu_torch communicator (MeshComm), got "
-            f"{type(comm).__qualname__}")
+            "comm must be a mpi4jax_tpu_torch communicator (MeshComm or "
+            f"WorldComm), got {type(comm).__qualname__}")
     return comm
 
 
@@ -92,11 +104,11 @@ def check_reduce_dtype(op_name: str, reduce_op, x, comm):
 
 def check_no_token(op: str, token, comm=None, x=None):
     """The token API is not ported: eager program order is the ordering
-    contract of the mesh tier."""
+    contract of both tiers."""
     if token is not None:
         fail("token= is not supported: the port runs eagerly, so program "
-             "order is the order of the ops (the token API belongs to the "
-             "world tier, not ported yet)", op=op, comm=comm, x=x,
+             "order is the order of the ops (the token API is queued in "
+             "ROADMAP.md §1 item 6)", op=op, comm=comm, x=x,
              exc=NotImplementedError)
 
 
