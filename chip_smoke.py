@@ -33,15 +33,19 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    permutation that leaves ranks without a source (zero fill), at n = 2, 4
    and 8 and on the axes of a 2x4 grid, in f32, f64, int32, bf16,
    complex64 and uint8, at byte counts that are odd and not multiples of
-   16; its time per launch on the halo's y and x strips of path (a),
-   beside its bound, its plain version and ``torch.roll``;
+   16; its time per call on the halo's y and x strips of path (a) (CUDA
+   events over back-to-back calls) and the profiler's device time of one
+   launch, beside its bound, its plain version and a ``torch.roll`` pair;
 8. the fused ring against ``fused_ring_allreduce_plain`` on the card, bit
    for bit, at n = 3, 4 and 8 and 1, 513, 16Ki, 16Ki+37 and 4Mi+3 elements
-   per rank (f32), at path (g)'s island fold, n = 2 and 3, 513, 70000, 4Mi
-   and 16Mi elements, and in the other dtypes it takes; every output row
-   identical; its time at n = 4 and 16 MiB per rank, and at n = 2 and 16
-   and 64 MiB per rank (path (g)'s), beside its bound, its plain version
-   and ``x.sum(0)``;
+   per rank (f32), at n = 65 and 1, 513 and 16Ki+37, at n = 3 and 16Ki+16
+   (a chunk boundary inside a 16-byte vector, in every dtype it takes), at
+   path (g)'s island fold, n = 2 and 3, 513, 70000, 4Mi and 16Mi elements,
+   and in the other dtypes at 16Ki+37; every output row identical; its
+   time at n = 4 and 16 MiB per rank, and at n = 2 and 16 and 64 MiB per
+   rank (path (g)'s), beside its bound, its plain version, ``x.sum(0)``
+   (one row) and ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` (the
+   n rows the kernel writes);
 9. path (b): the allreduce sweep (``mpi4jax_tpu_torch.benchmarks.
    allreduce_sweep``) through ``ops.allreduce`` at n = 4 and 8 from 1 KiB
    to 64 MiB per rank, the launch counters reset just before and read just
@@ -81,8 +85,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (``mpi4jax_tpu_torch.benchmarks.flash_tolerance``);
 16. the hop past 64 (rank, payload) pairs, bit for bit against the plain
    route: ``ring_shift``, ``ring_shift_n`` and the allreduce on 64 and 65
-   ranks, and ``halo_exchange`` on 6x6 and 8x8 grids; a hop of 64 pairs or
-   fewer stays one launch;
+   ranks, and ``halo_exchange`` on 6x6 and 8x8 grids; every hop is one
+   launch (``ring_shift`` and ``ring_shift_n`` one each, ``halo_exchange``
+   one per grid dimension);
 17. path (d): ring attention's forward (``mpi4jax_tpu_torch.benchmarks.
    ring_attention``) at B4 T4096 H16 D128 bf16 causal over n = 1 and 4
    ranks on the card (one warm-up, then 5 timed forwards), the counters
@@ -132,9 +137,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    blocks, +-amax, exact ties, a subnormal scale with subnormal elements,
    magnitudes near 1e30 and 3e38), and an input off a 16-byte boundary;
    the same frames against the transport's codec (``tpucomm_quant_pack``);
-   its time per launch at 16 and 64 MiB (the profiler's kernel time with
-   the L2 flushed between launches, and with the input in L2; CUDA events
-   per call) beside its bytes bound and the plain version's time;
+   its time per launch at 16 and 64 MiB (the profiler's kernel time over
+   the launches it recorded, with the L2 flushed between launches, and
+   with the input in L2; CUDA events per call) beside its bytes bound and the plain version's time;
 24. path (g): the world tier's hierarchical f32 allreduce
    (``mpi4jax_tpu_torch.benchmarks.ici_leg``), 4 ranks on the card through
    ``mpi4jax_tpu_torch.runtime.launch -n 4 --fake-hosts 'r0,r1|r2,r3'``,
@@ -170,7 +175,7 @@ import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
-from mpi4jax_tpu_torch.benchmarks._profile import kernel_ms_by_group
+from mpi4jax_tpu_torch.benchmarks._profile import RERUNS, kernel_ms_by_group
 from mpi4jax_tpu_torch.benchmarks import gpt_step as gpt_bench
 from mpi4jax_tpu_torch.benchmarks import ici_leg
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
@@ -205,6 +210,10 @@ HOP_LOCALS = ((5,), (37,), (3, 7), (4, 1802))  # odd and 4/8/16-byte blocks
 RING_COUNTS = (1, 513, 16 * 1024, 16 * 1024 + 37, 4 * 1024 * 1024 + 3)
 RING_DTYPES = (torch.float64, torch.float16, torch.bfloat16, torch.int32,
                torch.int64, torch.uint8, torch.complex64)
+# at n = 3 a chunk of this many elements is no multiple of a 16-byte vector
+# in any dtype, while the rows stay 16-byte aligned: two vectors of a row
+# hold a chunk boundary
+RING_SPLIT_COUNT = 16 * 1024 + 16
 SWEEP_MAX_BYTES = 64 * 1024 * 1024
 GRID = (2, 2)
 # tolerance of the 2x2 run's h against the 1x1 run's after 0.1 day (see
@@ -445,8 +454,9 @@ def check_ring(dev, on_card):
     seed = 100
     g_counts = G_COUNTS + tuple(b // 4 for b in G_SIZES[1:]) if on_card \
         else G_COUNTS[:3]
-    for n, counts in ((2, g_counts), (3, RING_COUNTS), (4, RING_COUNTS),
-                      (8, RING_COUNTS)):
+    for n, counts in ((2, g_counts), (3, RING_COUNTS + (RING_SPLIT_COUNT,)),
+                      (4, RING_COUNTS), (8, RING_COUNTS),
+                      (65, (1, 513, 16 * 1024 + 37))):
         for count in counts:
             seed += 1
             rows = random_tensor((n, count), torch.float32, dev, seed)
@@ -461,13 +471,14 @@ def check_ring(dev, on_card):
             if not bits_equal(got, got[:1].expand_as(got)):
                 fail(f"fused ring n={n} count={count}: rows differ")
             cases += 1
-    comm = make_mesh(4, device=dev)
-    for dtype in RING_DTYPES:
-        seed += 1
-        x = random_tensor((4, 16 * 1024 + 37), dtype, dev, seed)
-        same_as_plain(f"fused ring {dtype}", coll.fused_ring_allreduce_sum,
-                      x, comm)
-        cases += 1
+    for n, count in ((4, 16 * 1024 + 37), (3, RING_SPLIT_COUNT)):
+        comm = make_mesh(n, device=dev)
+        for dtype in RING_DTYPES:
+            seed += 1
+            x = random_tensor((n, count), dtype, dev, seed)
+            same_as_plain(f"fused ring n={n} count={count} {dtype}",
+                          coll.fused_ring_allreduce_sum, x, comm)
+            cases += 1
     sync(dev)
     log(f"  {cases} fused-ring calls equal their plain versions bit for "
         "bit, every row identical")
@@ -475,30 +486,48 @@ def check_ring(dev, on_card):
 
 
 def time_hop(dev, model):
-    """The hop's time per launch on path (a)'s halo strips: the y strips
-    (4 fields of nxl+2) and the x strips (4 fields of nyl+2), each moved by
-    one ring_shift2 on its grid axis."""
+    """The hop's time per call on path (a)'s halo strips: the y strips (4
+    fields of nxl+2) and the x strips (4 fields of nyl+2), each moved by
+    one ring_shift2 on its grid axis; then the profiler's device time of
+    one launch (after every CUDA-event reading: a CUPTI session may slow
+    the launches that follow it)."""
     grid = model.grid
     gy, gx = grid.shape
     nyp, nxp = model.block_shape
-    rows = {}
+    rows, calls = {}, {}
     for name, gdim, strip in (("y", 0, (4, 1, nxp)), ("x", 1, (4, nyp, 1))):
         a = random_tensor((gy, gx) + strip, torch.float32, dev, 7)
         b = random_tensor((gy, gx) + strip, torch.float32, dev, 8)
         comm = grid.axis_comm(gdim)
-        ms = time_ms(lambda: coll.ring_shift2(a, b, comm), 200)
+        calls[name] = lambda a=a, b=b, comm=comm: coll.ring_shift2(a, b, comm)
+        ms = time_ms(calls[name], 200)
         with coll.use_plain():
-            plain_ms = time_ms(lambda: coll.ring_shift2(a, b, comm), 200)
-        lib_ms = time_ms(lambda: (torch.roll(a, 1, dims=gdim),
-                                  torch.roll(b, -1, dims=gdim)), 200)
+            plain_ms = time_ms(calls[name], 200)
+        lib_ms = time_ms(lambda a=a, b=b, d=gdim: (
+            torch.roll(a, 1, dims=d), torch.roll(b, -1, dims=d)), 200)
         nbytes = 2 * (a.numel() + b.numel()) * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound, payload_bytes=nbytes // 2)
-        log(f"  hop, {name} strips ({nbytes // 2} B per launch): "
-            f"{ms * 1e3:.2f} us/launch, bound {bound * 1e3:.4f} us (bytes), "
-            f"plain {plain_ms * 1e3:.2f} us, torch.roll pair "
-            f"{lib_ms * 1e3:.2f} us")
+                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                          payload_bytes=nbytes // 2)
+    for name, row in rows.items():
+        # the kernel's own time on the card, from the profiler
+        _, groups, launches = kernel_ms_by_group(
+            calls[name], 200, lambda k: "hop" if "hop_kernel" in k else k,
+            dev, expect=("hop",))
+        if set(groups) != {"hop"} or launches["hop"] > 1:
+            fail(f"200 ring_shift2 of the {name} strips ran {sorted(groups)},"
+                 f" {launches['hop'] * 200:.0f} hop launches")
+        # the profiler may miss launches: a launch's time is read over
+        # those it recorded
+        row["device_ms"] = groups["hop"] / launches["hop"]
+        row["profiled_launches"] = round(launches["hop"] * 200)
+        log(f"  hop, {name} strips ({row['payload_bytes']} B per launch): "
+            f"{row['ms'] * 1e3:.2f} us per call, the launch "
+            f"{row['device_ms'] * 1e3:.2f} us on the card (the profiler "
+            f"recorded {row['profiled_launches']} of 200), bound "
+            f"{row['bound_ms'] * 1e3:.4f} us (bytes), plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, torch.roll pair "
+            f"{row['library_ms'] * 1e3:.2f} us")
     return rows
 
 
@@ -508,11 +537,16 @@ def time_ring(dev, n=4, count=4 * 1024 * 1024):
     ms = time_ms(lambda: coll.fused_ring_kernel(x), 20)
     plain_ms = time_ms(lambda: coll.fused_ring_allreduce_plain(x), 5)
     lib_ms = time_ms(lambda: x.sum(0), 20)
+    rows_ms = time_ms(
+        lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(), 20)
     bound = 2 * n * count * 4 / HBM_BYTES_PER_S * 1e3
     log(f"  fused ring, n={n}, {count * 4} B per rank: {ms:.4f} ms, bound "
         f"{bound:.4f} ms (bytes), {bound / ms:.3f} of it; plain "
-        f"{plain_ms:.4f} ms; x.sum(0) {lib_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound)
+        f"{plain_ms:.4f} ms; x.sum(0) {lib_ms:.4f} ms (one row); the n rows"
+        f" by x.sum(0, keepdim=True).expand_as(x).contiguous() "
+        f"{rows_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_n_rows_ms=rows_ms, bound_ms=bound)
 
 
 def path_b(dev, max_bytes, on_card, card):
@@ -864,14 +898,16 @@ def check_big_hops(dev, on_card):
         comm = make_mesh(n, device=dev)
         x = random_tensor((n, 37), torch.float32, dev, n)
         y = random_tensor((n, 5), torch.bfloat16, dev, n + 1)
-        before = coll.LAUNCHES["hop"]
-        same_as_plain(f"ring_shift n={n}", coll.ring_shift, x, comm, 1)
-        launched = coll.LAUNCHES["hop"] - before
-        if on_card and launched != (1 if n <= 64 else 2):
-            fail(f"ring_shift over {n} ranks took {launched} hop launches")
-        same_as_plain(f"ring_shift_n n={n}", coll.ring_shift_n, (x, y), comm,
-                      1)
-        same_as_plain(f"ring_shift2 n={n}", coll.ring_shift2, x, y, comm)
+        for what, fn, args in (("ring_shift", coll.ring_shift, (x, comm, 1)),
+                                ("ring_shift_n", coll.ring_shift_n,
+                                 ((x, y), comm, 1)),
+                                ("ring_shift2", coll.ring_shift2,
+                                 (x, y, comm))):
+            before = coll.LAUNCHES["hop"]
+            same_as_plain(f"{what} n={n}", fn, *args)
+            launched = coll.LAUNCHES["hop"] - before
+            if on_card and launched != 1:
+                fail(f"{what} over {n} ranks took {launched} hop launches")
         same_as_plain(f"allreduce n={n}", lambda t: ops.allreduce(t,
                                                                  comm=comm), x)
         cases += 4
@@ -879,13 +915,18 @@ def check_big_hops(dev, on_card):
         grid = ProcessGrid(shape, device=dev)
         f = random_tensor(shape + (3, 10, 12), torch.float32, dev, 9)
         for periodic in (True, False):
+            before = coll.LAUNCHES["hop"]
             same_as_plain(f"halo_exchange {shape} periodic={periodic}",
                           lambda g: halo_exchange(g, grid, periodic=periodic),
                           f)
+            launched = coll.LAUNCHES["hop"] - before
+            if on_card and launched != 2:
+                fail(f"halo_exchange on {shape} took {launched} hop launches,"
+                     " not one per grid dimension")
             cases += 1
     sync(dev)
     log(f"  {cases} calls past 64 pairs equal their plain versions bit for "
-        "bit; a hop of 64 pairs is one launch, of 65 two")
+        "bit; every hop one launch")
     return cases
 
 
@@ -1400,20 +1441,27 @@ def check_quant_pack(dev, on_card):
         # a call's time from CUDA events: the wrapper's host work sets it
         # while the kernel is shorter
         call_ms = time_ms(lambda: quantized.quant_pack(x), 50)
-        # the kernel's own time on the card, from the profiler
-        _, warm = kernel_ms_by_group(lambda: quantized.quant_pack(x), 20,
-                                     group, dev)
-        _, cold = kernel_ms_by_group(
-            lambda: (flush.zero_(), quantized.quant_pack(x)), 20, group, dev)
-        ms = cold["kernel 4"]
+        # the kernel's own time on the card, from the profiler, over the
+        # launches it recorded (it may miss some)
+        _, warm, warm_n = kernel_ms_by_group(
+            lambda: quantized.quant_pack(x), 20, group, dev,
+            expect=("kernel 4",))
+        _, cold, cold_n = kernel_ms_by_group(
+            lambda: (flush.zero_(), quantized.quant_pack(x)), 20, group, dev,
+            expect=("kernel 4",))
+        ms = cold["kernel 4"] / cold_n["kernel 4"]
+        warm_ms = warm["kernel 4"] / warm_n["kernel 4"]
+        recorded = [round(k["kernel 4"] * 20) for k in (cold_n, warm_n)]
         plain_ms = time_ms(lambda: quantized.quant_pack_plain(x), 10)
         bound = quant_frame_bytes(n) / HBM_BYTES_PER_S * 1e3
-        times[nbytes] = dict(ms=ms, warm_l2_ms=warm["kernel 4"],
-                             call_ms=call_ms, plain_ms=plain_ms,
-                             bound_ms=bound, bytes=quant_frame_bytes(n))
+        times[nbytes] = dict(ms=ms, warm_l2_ms=warm_ms, call_ms=call_ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bytes=quant_frame_bytes(n),
+                             profiled_launches=recorded)
         log(f"  kernel 4, {nbytes} B per rank: {ms:.4f} ms on the card "
-            f"from device memory ({warm['kernel 4']:.4f} ms with its input "
-            f"in L2; {call_ms:.4f} ms per call by CUDA events), bound "
+            f"from device memory ({warm_ms:.4f} ms with its input in L2; "
+            f"the profiler recorded {recorded[0]} and {recorded[1]} of 20 "
+            f"launches; {call_ms:.4f} ms per call by CUDA events), bound "
             f"{bound:.4f} ms (bytes: {quant_frame_bytes(n)} B), "
             f"{bound / ms:.3f} of it; plain {plain_ms:.4f} ms")
     return cases + 1, worst, times
@@ -1668,6 +1716,8 @@ def main(argv=None):
     log(f"phase 24: path (g), the hierarchical allreduce of 4 ranks on "
         f"{ici_leg.FAKE_HOSTS} with the leg on the card [{card}]")
     g_jobs = path_g(dev, on_card)
+    log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
+        f"{RERUNS}")
     if not on_card:
         log("rehearsal done (no result line: not a chip run)")
         return 0
@@ -1677,7 +1727,9 @@ def main(argv=None):
         "source": "mpi4jax_tpu_torch/csrc/hop.cu",
         "replaces": "mpi4jax_tpu/ops/pallas_collectives.py:74",
         "launches": a["launches"]["hop"], "max_abs_err": hop_worst,
-        "ok": True, "ms": hop_t["y"]["ms"], "plain_ms": hop_t["y"]["plain_ms"],
+        "ok": True, "ms": hop_t["y"]["ms"],
+        "device_ms": hop_t["y"]["device_ms"],
+        "plain_ms": hop_t["y"]["plain_ms"],
         "bound_ms": hop_t["y"]["bound_ms"], "bound_by": "bytes",
         "library_ms": hop_t["y"]["library_ms"],
         "library": "torch.roll pair (no single call shifts two ways)",
@@ -1695,7 +1747,9 @@ def main(argv=None):
         "launches": b_launches["fused_ring"], "max_abs_err": ring_worst,
         "ok": True, "ms": ring_t["ms"], "plain_ms": ring_t["plain_ms"],
         "bound_ms": ring_t["bound_ms"], "bound_by": "bytes",
-        "library_ms": ring_t["library_ms"], "library": "x.sum(0)",
+        "library_ms": ring_t["library_ms"], "library": "x.sum(0) (one row)",
+        "library_n_rows_ms": ring_t["library_n_rows_ms"],
+        "library_n_rows": "x.sum(0, keepdim=True).expand_as(x).contiguous()",
         "at": "n=4, 16 MiB per rank",
         "path_g_island_fold": {f"n=2, {b} B per rank": t
                                for b, t in ring_g.items()},

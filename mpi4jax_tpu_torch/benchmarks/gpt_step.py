@@ -225,9 +225,9 @@ def profile(model, toks, steps: int = 2, top: int = 12):
     """The card's kernel time per step by ``group`` (``torch.profiler``),
     the ``top`` kernels by time with their groups, and the busy share of
     the host-timed window."""
-    wall_ms, by_name = kernel_ms_by_group(lambda: model.train_step(toks),
-                                          steps, lambda name: name,
-                                          model.device)
+    wall_ms, by_name, _ = kernel_ms_by_group(
+        lambda: model.train_step(toks), steps, lambda name: name,
+        model.device)
     groups = {}
     for name, ms in by_name.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms

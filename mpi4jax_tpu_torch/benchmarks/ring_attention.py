@@ -288,7 +288,8 @@ def device_profile(shape=(4, 4096, 16, 128), ranks: int = 4,
                 x.grad = None
             out.backward(do)
 
-    wall_ms, groups = kernel_ms_by_group(call, forwards, _group, comm.device)
+    wall_ms, groups, _ = kernel_ms_by_group(call, forwards, _group,
+                                            comm.device)
     busy_ms = sum(groups.values())
     return {"ranks": ranks, "shape": list(shape), "backward": backward,
             "wall_ms_per_forward": wall_ms, "busy_ms_per_forward": busy_ms,

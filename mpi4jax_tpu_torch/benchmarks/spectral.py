@@ -120,7 +120,7 @@ def device_profile(n: int = 256, ranks: int = 4, solves: int = 3, *,
     cost included.  Card only."""
     comm = make_mesh(ranks, device=device)
     f, _ = manufactured(n, comm)
-    wall_ms, groups = kernel_ms_by_group(
+    wall_ms, groups, _ = kernel_ms_by_group(
         lambda: spectral.poisson_solve(f, comm=comm, shape=(n, n, n)),
         solves, _group, comm.device)
     busy_ms = sum(groups.values())

@@ -1,48 +1,47 @@
-// fused_ring: the whole ring allreduce (SUM) of n ranks in one launch (sm_90a).
+// fused_ring: the whole ring allreduce (SUM) of n ranks in one pass (sm_90a).
 //
 // Replaces the TPU kernel mpi4jax_tpu/ops/pallas_collectives.py:
 // _make_fused_ring_kernel (launched by _fused_ring_allreduce_impl there):
 // n-1 reduce-scatter steps, in which each rank folds the chunk arriving from
 // its left neighbour into its own copy (local + incoming, in ring arrival
 // order), then n-1 all-gather steps that copy the finished chunks.  The
-// chunks are the native ones (`_chunk_lo`: per = ceil(count / n)), so an
-// f32 result is bit for bit topo/_simulate.py:simulate_ring_sum of the n
-// rows.  The TPU's 128-lane padding of each chunk has no counterpart here:
-// the kernel works on the flat per-rank payload.
+// chunks are the native ones (`_chunk_lo`: per = ceil(count / n)).  The
+// TPU's 128-lane padding of each chunk has no counterpart here: the kernel
+// works on the flat per-rank payload.
+//
+// What the schedule computes is a closed form.  Chunk c starts at rank c
+// and moves one rank right per step, each rank adding its own copy in
+// front of the incoming partial, so after the reduce-scatter
+//     acc = x[c];  for j = 1 .. n-1:  acc = fold(x[(c + j) % n], acc)
+// and the gather copies acc into every row.  An f32 result is so bit for
+// bit topo/_simulate.py:simulate_ring_sum of the n rows, and every output
+// row is identical.
 //
 // Layout.  x and out are (n, count) and contiguous: row r is rank r's
-// payload, every rank on this card.  out doubles as the work buffer.
+// payload, every rank on this card.
 //
 // Bound: device memory.  The least work reads the n rows once and writes
-// them once, 2 n count elements.  This design moves (7n - 7) count: step 0
-// reads and writes every row plus one chunk of the left row, each later
-// step reads two chunks and writes one per rank, and the gather reads and
-// writes n-1 chunks per rank.
+// them once, 2 n count elements, and that is what this design moves: no
+// element is read or written twice.
 //
-// Design.  One cooperative launch: n rank groups (blockIdx.y) of G blocks
-// each (blockIdx.x), all co-resident, which the C function checks against
-// the card's occupancy before it launches.
-// - Step 0 writes out[r] = x[r], with chunk (r-1) % n folded with the left
-//   neighbour's x, reading only the input.
-// - Step s = 1 .. n-2 folds chunk (r-1-s) % n of out[left] into out[r].
-//   Within a step no chunk is both read and written, so one grid-wide
-//   barrier between steps is enough.  After step n-2 rank r holds the
-//   finished chunk (r+1) % n.
-// - The gather copies chunk c from out[(c-1) % n] into every other row;
-//   it writes only unfinished chunks and reads only finished ones.
-// The barrier is written by hand (a counter and a generation word, release
-// and acquire by fences), which is valid because the launch guarantees
-// co-residency; a block that waits longer than kSpinLimit clock cycles
-// traps, so a fault shows as a failed launch and not as a hang.  Data that
-// other blocks wrote during the launch is read through L2 (__ldcg): L1 is
-// not coherent across SMs.
+// Design.  One ordinary launch; no steps, no grid barrier, no state
+// outside the launch's arguments, so launches on several streams do not
+// meet.  Each thread takes items in a grid-stride loop.  An item is a
+// 16-byte vector at one offset of every row when x, out and the row length
+// are 16-byte aligned, else one element.  The thread works out the item's
+// chunk, starts the n row loads in batches of kBatch (a batch is in flight
+// together), folds them in the order above and stores the sum to all n
+// rows.  A vector whose elements fall in two chunks folds element by
+// element, since its elements fold the rows in different orders; a row
+// length that is no multiple of 16 bytes misaligns the rows, so the launch
+// takes the element items throughout.
 //
 // Arithmetic.  f32 folds with __fadd_rn and f64 with __dadd_rn (no fast
 // math: the association is the contract); f16 and bf16 fold in f32 and
-// round to the type; integers add modulo 2^bits, with signed types passed
-// as the unsigned type of their width.  Complex travels as its float pair.
-// Per-ring release/acquire flags in place of grid barriers (the TPU
-// kernel's credit scheme) are left for later.
+// round to the type after every fold, as the step-by-step schedule stores
+// the type between steps; integers add modulo 2^bits, with signed types
+// passed as the unsigned type of their width.  Complex travels as its float
+// pair.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,151 +51,148 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
-constexpr long long kSpinLimit = 4000000000LL;  // about 2 s at 1.98 GHz
+constexpr int kBatch = 8;               // row loads in flight per thread
+constexpr long long kMaxBlocks = 1 << 20;  // more items: grid-stride
 
-__device__ unsigned int g_bar_count = 0;
-__device__ unsigned int g_bar_gen = 0;
+// Each element type by its storage type S and its fold(local, incoming).
+struct F32 {
+  using S = float;
+  static __device__ __forceinline__ S fold(S a, S b) { return __fadd_rn(a, b); }
+};
+struct F64 {
+  using S = double;
+  static __device__ __forceinline__ S fold(S a, S b) { return __dadd_rn(a, b); }
+};
+struct F16 {
+  using S = unsigned short;
+  static __device__ __forceinline__ S fold(S a, S b) {
+    return __half_as_ushort(__float2half_rn(__fadd_rn(
+        __half2float(__ushort_as_half(a)), __half2float(__ushort_as_half(b)))));
+  }
+};
+struct BF16 {
+  using S = unsigned short;
+  static __device__ __forceinline__ S fold(S a, S b) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(
+        __fadd_rn(__bfloat162float(__ushort_as_bfloat16(a)),
+                  __bfloat162float(__ushort_as_bfloat16(b)))));
+  }
+};
+template <typename U>
+struct Int {
+  using S = U;
+  static __device__ __forceinline__ S fold(S a, S b) { return (S)(a + b); }
+};
 
-__device__ __forceinline__ void grid_barrier(unsigned int nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = &g_bar_gen;
-    const unsigned int seen = *gen;
-    __threadfence();
-    if (atomicAdd(&g_bar_count, 1u) == nblocks - 1) {
-      atomicExch(&g_bar_count, 0u);
-      __threadfence();
-      atomicAdd(&g_bar_gen, 1u);
-    } else {
-      const long long t0 = clock64();
-      while (*gen == seen) {
-        if (clock64() - t0 > kSpinLimit) __trap();
+template <class F>
+union Vec {
+  uint4 u;
+  typename F::S e[16 / sizeof(typename F::S)];
+};
+
+__device__ __forceinline__ int chunk_of(long long i, long long per,
+                                        bool narrow) {
+  return narrow ? (int)((unsigned)i / (unsigned)per) : (int)(i / per);
+}
+
+// The sum of element i of the n rows (row stride count), folded from row c.
+template <class F>
+__device__ __forceinline__ typename F::S fold_element(
+    const typename F::S* __restrict__ x, long long count, int n, int c,
+    long long i) {
+  using S = typename F::S;
+  S acc = S();
+  int row = c;
+  for (int j0 = 0; j0 < n; j0 += kBatch) {
+    S v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (j0 + b < n) {
+        v[b] = x[(long long)row * count + i];
+        row = row + 1 == n ? 0 : row + 1;
       }
     }
-    __threadfence();
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (j0 + b < n) acc = j0 + b == 0 ? v[b] : F::fold(v[b], acc);
+    }
   }
-  __syncthreads();
+  return acc;
 }
 
-__device__ __forceinline__ float fold(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double fold(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ __half fold(__half a, __half b) {
-  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
-}
-__device__ __forceinline__ __nv_bfloat16 fold(__nv_bfloat16 a,
-                                              __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ __forceinline__ unsigned char fold(unsigned char a,
-                                              unsigned char b) {
-  return (unsigned char)(a + b);
-}
-__device__ __forceinline__ unsigned short fold(unsigned short a,
-                                               unsigned short b) {
-  return (unsigned short)(a + b);
-}
-__device__ __forceinline__ unsigned int fold(unsigned int a, unsigned int b) {
-  return a + b;
-}
-__device__ __forceinline__ unsigned long long fold(unsigned long long a,
-                                                   unsigned long long b) {
-  return a + b;
-}
-
-__device__ __forceinline__ long long chunk_lo(long long count, long long per,
-                                              int c) {
-  const long long lo = per * c;
-  return lo < count ? lo : count;
-}
-
-template <typename T>
+template <class F, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    fused_ring_kernel(const T* __restrict__ x, T* out, long long count,
-                      int n) {
-  const int r = blockIdx.y;
-  const int left = (r + n - 1) % n;
-  const long long per = (count + n - 1) / n;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    fused_ring_kernel(const typename F::S* __restrict__ x,
+                      typename F::S* __restrict__ out, long long count, int n,
+                      long long per, long long items, bool narrow) {
+  using S = typename F::S;
+  constexpr int V = 16 / sizeof(S);
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const unsigned int nblocks = gridDim.x * gridDim.y;
-  T* mine = out + (long long)r * count;
-  const T* lrow = out + (long long)left * count;
-  const T* xmine = x + (long long)r * count;
-  const T* xleft = x + (long long)left * count;
-
-  // step 0: copy the row, folding chunk (r-1) % n from the inputs
-  {
-    const int c = left;
-    const long long lo = chunk_lo(count, per, c);
-    const long long hi = chunk_lo(count, per, c + 1);
-    for (long long i = tid; i < count; i += stride)
-      mine[i] = (i >= lo && i < hi) ? fold(xmine[i], xleft[i]) : xmine[i];
-  }
-  grid_barrier(nblocks);
-
-  // steps 1 .. n-2: fold chunk (r-1-s) % n of the left neighbour's row
-  for (int s = 1; s < n - 1; ++s) {
-    const int c = ((r - 1 - s) % n + n) % n;
-    const long long lo = chunk_lo(count, per, c);
-    const long long hi = chunk_lo(count, per, c + 1);
-    for (long long i = lo + tid; i < hi; i += stride)
-      mine[i] = fold(__ldcg(mine + i), __ldcg(lrow + i));
-    grid_barrier(nblocks);
-  }
-
-  // gather: chunk c is finished in row (c-1) % n
-  const int own = (r + 1) % n;
-  for (int c = 0; c < n; ++c) {
-    if (c == own) continue;
-    const T* src = out + (long long)((c + n - 1) % n) * count;
-    const long long lo = chunk_lo(count, per, c);
-    const long long hi = chunk_lo(count, per, c + 1);
-    for (long long i = lo + tid; i < hi; i += stride) mine[i] = __ldcg(src + i);
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < items; t += stride) {
+    if constexpr (!kVec) {
+      const S acc = fold_element<F>(x, count, n, chunk_of(t, per, narrow), t);
+      for (int r = 0; r < n; ++r) out[(long long)r * count + t] = acc;
+      continue;
+    }
+    const long long i0 = t * V;
+    const long long rowv = count / V;  // a row's length in vectors
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    const int c = chunk_of(i0, per, narrow);
+    Vec<F> acc;
+    if (c == chunk_of(i0 + V - 1, per, narrow)) {
+      int row = c;
+      for (int j0 = 0; j0 < n; j0 += kBatch) {
+        Vec<F> v[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (j0 + b < n) {
+            v[b].u = xv[(long long)row * rowv + t];
+            row = row + 1 == n ? 0 : row + 1;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (j0 + b == 0) {
+            acc = v[b];
+          } else if (j0 + b < n) {
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc.e[e] = F::fold(v[b].e[e], acc.e[e]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        acc.e[e] = fold_element<F>(x, count, n,
+                                   chunk_of(i0 + e, per, narrow), i0 + e);
+    }
+    for (int r = 0; r < n; ++r) ov[(long long)r * rowv + t] = acc.u;
   }
 }
 
-template <typename T>
+template <class F>
 int launch(const void* x, void* out, long long count, int n,
            cudaStream_t stream) {
-  // blocks that stay co-resident on each device, queried once per device
-  // and element type (0: not queried yet)
-  static long long resident_on[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (resident_on[dev] == 0) {
-    int sms = 0, coop = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (!coop) return (int)cudaErrorNotSupported;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_ring_kernel<T>, kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    resident_on[dev] = (long long)per_sm * sms;
-  }
-  const long long resident = resident_on[dev];
-  if (n > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // G blocks per rank: enough for about 4 elements a thread, at most what
-  // stays co-resident
-  long long g = (count + 4LL * kThreads - 1) / (4LL * kThreads);
-  if (g > resident / n) g = resident / n;
-  if (g < 1) g = 1;
-  const dim3 grid((unsigned)g, (unsigned)n);
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  void* args[] = {(void*)&xp, (void*)&op, (void*)&count, (void*)&n};
-  err = cudaLaunchCooperativeKernel((const void*)fused_ring_kernel<T>, grid,
-                                    dim3(kThreads), args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
+  using S = typename F::S;
+  constexpr int V = 16 / sizeof(S);
+  const S* xp = static_cast<const S*>(x);
+  S* op = static_cast<S*>(out);
+  const long long per = (count + n - 1) / n;
+  const bool narrow = count <= 0xffffffffLL;
+  const bool vec =
+      (((uintptr_t)x | (uintptr_t)out) & 15) == 0 && count % V == 0;
+  const long long items = vec ? count / V : count;
+  long long blocks = (items + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (vec)
+    fused_ring_kernel<F, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        xp, op, count, n, per, items, narrow);
+  else
+    fused_ring_kernel<F, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        xp, op, count, n, per, items, narrow);
   return (int)cudaGetLastError();
 }
 
@@ -210,14 +206,14 @@ extern "C" int fused_ring_launch(const void* x, void* out, long long count,
   if (n < 2 || count < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (kind) {
-    case 0: return launch<float>(x, out, count, n, s);
-    case 1: return launch<double>(x, out, count, n, s);
-    case 2: return launch<__half>(x, out, count, n, s);
-    case 3: return launch<__nv_bfloat16>(x, out, count, n, s);
-    case 4: return launch<unsigned char>(x, out, count, n, s);
-    case 5: return launch<unsigned short>(x, out, count, n, s);
-    case 6: return launch<unsigned int>(x, out, count, n, s);
-    case 7: return launch<unsigned long long>(x, out, count, n, s);
+    case 0: return launch<F32>(x, out, count, n, s);
+    case 1: return launch<F64>(x, out, count, n, s);
+    case 2: return launch<F16>(x, out, count, n, s);
+    case 3: return launch<BF16>(x, out, count, n, s);
+    case 4: return launch<Int<unsigned char>>(x, out, count, n, s);
+    case 5: return launch<Int<unsigned short>>(x, out, count, n, s);
+    case 6: return launch<Int<unsigned int>>(x, out, count, n, s);
+    case 7: return launch<Int<unsigned long long>>(x, out, count, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,13 +5,16 @@ The counterpart of ``mpi4jax_tpu/ops/pallas_collectives.py``.  Three
 kernels carry every function here:
 
 - ``hop`` (``csrc/hop.cu``): k payloads, each rank's block of payload i
-  copied to rank ``dst[r][i]``, in one launch (several past ``MAX_PAIRS``
-  (rank, payload) pairs).  ``ring_shift``, ``ring_shift2`` (the halo),
+  copied to rank ``dst[r][i]``, in one launch over any number of ranks,
+  from a launch plan made once per hop table and device; blocks that no
+  rank targets are zeroed in the same launch.  ``ring_shift``,
+  ``ring_shift2`` (the halo),
   ``ring_shift_n`` (ring attention's k/v rotation), ``exchange`` (the
   butterfly), the hop-composed ``all_gather`` and ``reduce_scatter_sum``
   are built from it, as on the TPU;
 - ``fused_ring_allreduce_sum`` (``csrc/fused_ring.cu``): the whole ring
-  allreduce in one launch, bit for bit ``topo.simulate_ring_sum``;
+  allreduce in one barrier-free pass, bit for bit
+  ``topo.simulate_ring_sum``;
 - ``alltoall`` (``csrc/alltoall.cu``): every rank's n rows to their
   destinations in one launch, the own row as a loopback copy.
 
@@ -31,7 +34,8 @@ move complex tensors as their float pair; the alltoall moves bytes.
 
 Gradients: each function is a ``torch.autograd.Function`` whose backward
 launches the same kernels: a hop transposes to the inverse hop (a ring
-shift to the reverse shift, ``ring_shift2`` to the swapped pair),
+shift to the reverse shift, ``ring_shift2`` to the swapped pair; a hop
+that records no gradient skips ``autograd.Function``),
 ``all_gather`` to ``reduce_scatter_sum`` and back, and an allreduce-SUM and
 an alltoall each to itself.
 """
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import struct
 
 import torch
 
@@ -47,8 +52,7 @@ from .. import _build
 
 LAUNCHES = {"hop": 0, "fused_ring": 0, "alltoall": 0}  # read by chip_smoke
 
-MAX_PAIRS = 64  # (rank, payload) pairs of one hop launch: csrc/hop.cu;
-# a hop of more pairs takes several launches
+MAX_PAYLOADS = 16  # payloads of one hop launch: kMaxPayloads in csrc/hop.cu
 
 # Below this many elements per rank the allreduce is latency-bound and takes
 # the butterfly: log2(n) full-payload exchanges (power-of-two n only).
@@ -106,12 +110,16 @@ def _real(x):
     return torch.view_as_real(x) if x.is_complex() else x
 
 
-def _blocks(x, nranks):
-    """``x`` as ``(nranks, block)``: row r is rank r's block."""
+def _check_blocks(x, nranks):
     if x.numel() % nranks:
         raise ValueError(
             f"a tensor of shape {tuple(x.shape)} does not split into "
             f"{nranks} rank blocks")
+
+
+def _blocks(x, nranks):
+    """``x`` as ``(nranks, block)``: row r is rank r's block."""
+    _check_blocks(x, nranks)
     return x.reshape(nranks, -1)
 
 
@@ -120,10 +128,23 @@ def _blocks(x, nranks):
 # ---------------------------------------------------------------------------
 
 
+class _HopTable(tuple):
+    """A checked hop table: n rows, one per rank, of k destinations (an int
+    or None).  What is derived from it lives with it, so it is made once
+    per table, and the table itself is cached on its comm (``_table``):
+    the launch plan per device (``_hop_plan``) and the inverse table."""
+
+    def __new__(cls, rows):
+        table = super().__new__(cls, rows)
+        table.plans = {}  # device -> the launch plan, (k, n) int32
+        table.inverse = None
+        return table
+
+
 def _check_table(dst, k):
-    """``dst`` as a tuple of rows, one per rank, of k destinations (an int
-    or None); each payload's destinations must be distinct."""
-    dst = tuple(tuple(row) for row in dst)
+    """``dst`` as a ``_HopTable`` of rows, one per rank, of k destinations
+    (an int or None); each payload's destinations must be distinct."""
+    dst = _HopTable(tuple(row) for row in dst)
     n = len(dst)
     for row in dst:
         if len(row) != k:
@@ -138,18 +159,18 @@ def _check_table(dst, k):
     return dst
 
 
-def _bijective(dst, i):
-    return all(row[i] is not None for row in dst)
-
-
-def _invert(dst, k):
-    n = len(dst)
-    inv = [[None] * k for _ in range(n)]
-    for r, row in enumerate(dst):
-        for i, d in enumerate(row):
-            if d is not None:
-                inv[d][i] = r
-    return tuple(tuple(row) for row in inv)
+def _invert(dst):
+    """The table of the reverse hop (the backward's), made once per
+    table: rank d sends payload i to the rank that sent it to d."""
+    if dst.inverse is None:
+        k = len(dst[0]) if dst else 0
+        inv = [[None] * k for _ in dst]
+        for r, row in enumerate(dst):
+            for i, d in enumerate(row):
+                if d is not None:
+                    inv[d][i] = r
+        dst.inverse = _HopTable(tuple(row) for row in inv)
+    return dst.inverse
 
 
 def hop_plain(xs, dst):
@@ -167,62 +188,77 @@ def hop_plain(xs, dst):
     return tuple(outs)
 
 
+def _hop_plan(dst, dev):
+    """The launch plan of the hop table ``dst`` on ``dev``, made once per
+    table and device: a (k, n) int32 tensor on ``dev`` whose entry
+    ``[i, d]`` is the rank whose block of payload i lands in block d, or -1
+    where no rank sends there (the kernel zeroes that block).  It depends
+    on neither the payloads' sizes nor their dtypes: the kernel takes
+    those per launch."""
+    plan = dst.plans.get(dev)
+    if plan is None:
+        inv = _invert(dst)
+        k = len(dst[0])
+        plan = torch.tensor(
+            [[-1 if row[i] is None else row[i] for row in inv]
+             for i in range(k)], dtype=torch.int32, device=dev)
+        dst.plans[dev] = plan
+    return plan
+
+
+def _stream(dev):
+    """The handle of ``dev``'s current stream, a plain int."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _device_guard(dev):
+    """A context that makes ``dev`` the current device, and nothing where
+    it already is."""
+    if torch._C._cuda_getDevice() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _hop_kernel(xs, dst):
-    n = len(dst)
-    # the contiguous inputs stay referenced until the launches are enqueued
+    """The hop on the card: one launch of ``csrc/hop.cu`` over every rank
+    and payload, the untargeted blocks zeroed by the kernel.  A launch
+    holds at most ``MAX_PAYLOADS`` payloads (callers pass at most 4)."""
+    n, k = len(dst), len(xs)
+    if k > MAX_PAYLOADS:
+        raise ValueError(f"a hop on the card takes at most {MAX_PAYLOADS} "
+                         f"payloads, got {k}")
+    dev = xs[0].device
+    plan = _hop_plan(dst, dev)
+    # the contiguous inputs stay referenced until the launch is enqueued
     xs = [x.contiguous() for x in xs]
-    pairs, outs = [], []
-    for i, x in enumerate(xs):
-        out = (torch.empty_like(x) if _bijective(dst, i)
-               else torch.zeros_like(x))
-        outs.append(out)
-        block = x.numel() * x.element_size() // n
-        if block == 0:
-            continue
-        for r in range(n):
-            d = dst[r][i]
-            if d is not None:
-                pairs.append((x.data_ptr() + r * block,
-                              out.data_ptr() + d * block, block))
-    if pairs:
-        # one launch's parameter table holds MAX_PAIRS pairs: a larger hop
-        # takes the fewest launches that hold it, of near-equal size, in
-        # order on one stream (the pairs write disjoint blocks)
-        launches = -(-len(pairs) // MAX_PAIRS)
-        per = -(-len(pairs) // launches)
-        for lo in range(0, len(pairs), per):
-            _hop_launch(pairs[lo:lo + per], xs[0].device)
-    return tuple(outs)
-
-
-def _hop_launch(pairs, dev):
-    """One launch of ``csrc/hop.cu`` over at most ``MAX_PAIRS`` (source,
-    target, bytes) pairs."""
+    outs = tuple(torch.empty_like(x) for x in xs)
+    blocks = [x.numel() * x.element_size() // n for x in xs]
+    if not any(blocks):
+        return outs
     lib = _build.library("hop")
     fn = lib.hop_launch
     if fn.argtypes is None:  # declared once per loaded library
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    m = len(pairs)
-    srcs, dsts, nbytes = zip(*pairs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    src_arr = (ctypes.c_ulonglong * m)(*srcs)
-    dst_arr = (ctypes.c_ulonglong * m)(*dsts)
-    len_arr = (ctypes.c_longlong * m)(*nbytes)
-    with torch.cuda.device(dev):
-        err = fn(ctypes.addressof(src_arr), ctypes.addressof(dst_arr),
-                 ctypes.addressof(len_arr), m, stream)
+    args = struct.pack(f"{2 * k}Q{k}q", *(x.data_ptr() for x in xs),
+                       *(o.data_ptr() for o in outs), *blocks)
+    with _device_guard(dev):
+        err = fn(plan.data_ptr(), n, k, args, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"hop_launch failed: {_build.error_string(lib, err)}")
+        raise RuntimeError(
+            f"hop_launch failed: {_build.error_string(lib, err)}")
     LAUNCHES["hop"] += 1
+    return outs
 
 
 def _hop_impl(xs, dst):
     n = len(dst)
+    dev = xs[0].device
     for x in xs:
-        _blocks(x, n)
-        if x.device != xs[0].device:
-            raise ValueError(f"payloads on {x.device} and {xs[0].device}")
+        _check_blocks(x, n)
+        if x.device != dev:
+            raise ValueError(f"payloads on {x.device} and {dev}")
     if on_kernel(xs[0]):
         return _hop_kernel(xs, dst)
     return hop_plain(xs, dst)
@@ -237,7 +273,15 @@ class _Hop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         # the cotangent flows back along each message edge
-        return (None, *hop(gs, _invert(ctx.dst, len(gs))))
+        return (None, *_hop_apply(_invert(ctx.dst), gs))
+
+
+def _hop_apply(dst, xs):
+    """The hop of the checked table ``dst``: through ``_Hop`` where a
+    gradient is to be recorded, else straight to the launch."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return _Hop.apply(dst, *xs)
+    return _hop_impl(xs, dst)
 
 
 def hop(xs, dst):
@@ -246,11 +290,12 @@ def hop(xs, dst):
     ``xs``: k tensors whose leading dimensions hold the ranks (row r of
     ``x.reshape(n, -1)`` is rank r's block).  ``dst``: n rows of k
     destination ranks; ``None`` sends nothing.  An output block that no
-    rank targets is zero, as ``ppermute`` leaves it.  Returns a tuple.
+    rank targets is zero, as ``ppermute`` leaves it.  On the card k is at
+    most ``MAX_PAYLOADS``.  Returns a tuple.
     """
     xs = tuple(xs)
     dst = _check_table(dst, len(xs))
-    return tuple(_Hop.apply(dst, *xs))
+    return tuple(_hop_apply(dst, xs))
 
 
 # ---------------------------------------------------------------------------
@@ -260,10 +305,12 @@ def hop(xs, dst):
 
 def _table(comm, key, targets):
     """The checked hop table that sends payload i of each mesh rank to the
-    rank with comm rank ``targets[i][c]`` in its group (c its own comm
-    rank), cached on the comm under ``key``."""
+    rank with comm rank ``targets()[i][c]`` in its group (c its own comm
+    rank), cached on the comm under ``key`` (``targets`` is called only
+    to make it)."""
     table = comm.tables.get(key)
     if table is None:
+        targets = targets()
         table = _check_table(
             [tuple(comm.peer(f, t[c]) for t in targets)
              for f, c in enumerate(comm.ranks())], len(targets))
@@ -274,7 +321,7 @@ def _table(comm, key, targets):
 def _shifts(comm, *shifts):
     n = comm.size()
     return _table(comm, ("shift",) + shifts,
-                  [[(c + s) % n for c in range(n)] for s in shifts])
+                  lambda: [[(c + s) % n for c in range(n)] for s in shifts])
 
 
 def ring_shift(x, comm, shift: int = 1):
@@ -282,14 +329,14 @@ def ring_shift(x, comm, shift: int = 1):
     rank ``me - shift``."""
     if shift == 0:
         return x
-    return _Hop.apply(_shifts(comm, shift), x)[0]
+    return _hop_apply(_shifts(comm, shift), (x,))[0]
 
 
 def ring_shift2(a, b, comm):
     """One bidirectional ring step in one launch: ``a`` moves right and
     ``b`` left; returns ``(a', b')``, ``a'`` the left neighbour's ``a`` and
     ``b'`` the right neighbour's ``b``."""
-    return tuple(_Hop.apply(_shifts(comm, 1, -1), a, b))
+    return _hop_apply(_shifts(comm, 1, -1), (a, b))
 
 
 def ring_shift_n(xs, comm, shift: int = 1):
@@ -300,14 +347,15 @@ def ring_shift_n(xs, comm, shift: int = 1):
     xs = tuple(xs)
     if shift == 0:
         return xs
-    return tuple(_Hop.apply(_shifts(comm, *(shift,) * len(xs)), *xs))
+    return tuple(_hop_apply(_shifts(comm, *(shift,) * len(xs)), xs))
 
 
 def exchange(x, comm, partners):
     """Pairwise exchange: comm rank c receives the block of comm rank
     ``partners[c]`` (an involution, such as the butterfly's XOR)."""
     partners = tuple(partners)
-    return _Hop.apply(_table(comm, ("exchange", partners), [partners]), x)[0]
+    return _hop_apply(_table(comm, ("exchange", partners), lambda: [partners]),
+                      (x,))[0]
 
 
 def _all_gather_impl(x, comm):
@@ -322,7 +370,7 @@ def _all_gather_impl(x, comm):
         stacked.append(cur)
     # stacked[s] holds comm rank (me - s)'s block; row j wants rank j's
     rows = torch.stack([_blocks(s, comm.nranks) for s in stacked], dim=1)
-    me = torch.tensor(comm.ranks(), device=x.device)
+    me = comm.rank(x.device).reshape(-1)  # cached per device
     src = (me[:, None] - torch.arange(n, device=x.device)[None, :]) % n
     out = rows[torch.arange(comm.nranks, device=x.device)[:, None], src]
     return out.reshape(*lead, n, *local)
@@ -339,7 +387,7 @@ def _reduce_scatter_impl(x, comm):
     if n == 1:
         return x.clone()
     view = _blocks(x, comm.nranks).reshape(comm.nranks, n, -1)
-    me = torch.tensor(comm.ranks(), device=x.device)
+    me = comm.rank(x.device).reshape(-1)  # cached per device
     every = torch.arange(comm.nranks, device=x.device)
 
     def chunk(s):
@@ -458,9 +506,9 @@ def fused_ring_kernel(rows: torch.Tensor) -> torch.Tensor:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    with torch.cuda.device(rows.device):
-        err = fn(rows.data_ptr(), out.data_ptr(), count, n, kind, stream)
+    with _device_guard(rows.device):
+        err = fn(rows.data_ptr(), out.data_ptr(), count, n, kind,
+                 _stream(rows.device))
     if err != 0:
         raise RuntimeError(
             f"fused_ring_launch failed: {_build.error_string(lib, err)}")
@@ -639,10 +687,9 @@ def _alltoall_kernel(x, comm):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                                ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with _device_guard(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), src.data_ptr(), row_bytes,
-                 npairs, stream)
+                 npairs, _stream(x.device))
     if err != 0:
         raise RuntimeError(
             f"alltoall_launch failed: {_build.error_string(lib, err)}")

@@ -96,20 +96,26 @@ def sendrecv(x, perm, comm):
     k = _collectives.ring_shift_of(perm, n)
     if k is not None:
         return _collectives.ring_shift(x, comm, k)
-    to = {}
-    for s, d in perm:
-        if not (0 <= s < n and 0 <= d < n):
-            raise ValueError(f"pair ({s}, {d}) out of range for {n} ranks")
-        if s in to:
-            raise ValueError(f"rank {s} sends twice in {perm}")
-        to[s] = d
-    if len(set(to.values())) != len(to):
-        raise ValueError(f"a rank receives twice in {perm}")
-    table = [
-        (comm.peer(f, to[c]) if c in to else None,)
-        for f, c in enumerate(comm.ranks())
-    ]
-    return _collectives.hop((x,), table)[0]
+    key = ("sendrecv", tuple(tuple(p) for p in perm))
+    table = comm.tables.get(key)
+    if table is None:
+        to = {}
+        for s, d in perm:
+            if not (0 <= s < n and 0 <= d < n):
+                raise ValueError(
+                    f"pair ({s}, {d}) out of range for {n} ranks")
+            if s in to:
+                raise ValueError(f"rank {s} sends twice in {perm}")
+            to[s] = d
+        if len(set(to.values())) != len(to):
+            raise ValueError(f"a rank receives twice in {perm}")
+        # checked once per permutation and cached on the comm, with the
+        # hop's launch plan
+        table = _collectives._check_table(
+            [(comm.peer(f, to[c]) if c in to else None,)
+             for f, c in enumerate(comm.ranks())], 1)
+        comm.tables[key] = table
+    return _collectives._hop_apply(table, (x,))[0]
 
 
 def alltoall(x, comm):

@@ -100,7 +100,8 @@ class MeshComm(CommBase):
             _ravel([_unravel(f, self.layout_shape)[d] for d in self.dims],
                    self.shape)
             for f in range(self.nranks))
-        # hop and alltoall tables of the collectives, rank tensors
+        # hop and alltoall tables of the collectives, rank tensors,
+        # sub-communicators
         self.tables: dict = {}
 
     # -- identity -----------------------------------------------------------
@@ -145,13 +146,22 @@ class MeshComm(CommBase):
         return _ravel(coords, self.layout_shape)
 
     def sub(self, axis) -> "MeshComm":
-        """Sub-communicator over a subset of this comm's axes."""
+        """Sub-communicator over a subset of this comm's axes, made once per
+        axes and cached on this comm, so that its hop tables and launch
+        plans are made once too (the halo asks for it at every
+        exchange)."""
         if isinstance(axis, str):
             axis = (axis,)
-        for a in axis:
-            if a not in self.axes:
-                raise ValueError(f"axis {a!r} not part of {self!r}")
-        return MeshComm(tuple(axis), device=self.device, layout=self.layout)
+        key = ("sub", tuple(axis))
+        comm = self.tables.get(key)
+        if comm is None:
+            for a in axis:
+                if a not in self.axes:
+                    raise ValueError(f"axis {a!r} not part of {self!r}")
+            comm = MeshComm(tuple(axis), device=self.device,
+                            layout=self.layout)
+            self.tables[key] = comm
+        return comm
 
 
 def _unravel(f: int, shape) -> list:
