@@ -74,7 +74,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    solution to 1e-3, bit for bit the same solve on the plain route, and the
    share of a solve that the alltoalls take (CUDA events);
 14. the build of kernel 5, the flash forward (``csrc/flash_fwd.cu``): build
-   time and ptxas lines;
+   time and ptxas lines, and each instantiation's registers, spills and
+   shared memory;
 15. kernel 5 against ``flash_fwd_block_plain`` on the card at the edge
    shapes of ``mpi4jax_tpu_torch/ops/_flash_check.py``: f32, bf16 and fp16,
    D = 16, 32, 64 and 128, causal and not, offsets (0, 0), (64, 0),
@@ -102,7 +103,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    the plain version at that shape; the plain version's time and
    ``scaled_dot_product_attention(is_causal=True)``'s on the same tensors;
 18. the build of kernels 6 and 7, the flash backward (``csrc/flash_bwd.cu``):
-   ptxas lines (registers and spills of each instantiation);
+   ptxas lines (registers, spills and shared memory of each
+   instantiation);
 19. kernels 6 and 7 against ``flash_bwd_block_plain`` at the edge cases of
    ``_flash_check.bwd_cases`` (the forward's, with dO, lse and delta): f32,
    bf16 and fp16, D = 16, 32, 64 and 128, each gradient within
@@ -163,6 +165,7 @@ no result line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -310,20 +313,32 @@ def log_build(name, build_secs):
             log(f"  {name}: {line.strip()}")
 
 
+# the kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu, as ptxas names them
+FLASH_KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_dq_mma",
+                      "flash_bwd_dkv_wgmma", "flash_bwd_dq_f32",
+                      "flash_bwd_dkv_f32")
+
+
 def log_registers(name):
-    """Each kernel's registers and spills from ptxas's lines, one line per
-    instantiation."""
+    """Each kernel's registers, spills and static shared memory from
+    ptxas's lines, one line per instantiation; for the wgmma kernels also
+    the dynamic shared memory a launch asks for (``flash_smem_bytes`` of
+    the library)."""
+    lib = _build.library(name)
+    lib.flash_smem_bytes.argtypes = [ctypes.c_int]
     fn = None
     for line in _build.LOGS.get(name, "").splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             # the kernel's name and its template arguments, unmangled enough
-            fn = next(p for p in ("flash_bwd_dq_mma", "flash_bwd_dkv_mma",
-                                  "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
-                                  mangled) if p in mangled)
+            fn = next(p for p in (*FLASH_KERNEL_NAMES, mangled)
+                      if p in mangled)
+            d = int(mangled.split("Li")[-1].split("E")[0])
+            if "wgmma" in fn:
+                fn += f" (dynamic smem {lib.flash_smem_bytes(d)} bytes)"
             fn += " " + ("bf16" if "bfloat16" in mangled else "fp16"
                          if "half" in mangled else "f32")
-            fn += " D=" + mangled.split("Li")[-1].split("E")[0]
+            fn += f" D={d}"
             spills = ""
         elif "spill" in line:
             spills = line.strip()
@@ -1680,6 +1695,7 @@ def main(argv=None):
     if on_card:
         log("phase 14: build of kernel 5, the flash forward")
         log_build("flash_fwd", build_secs)
+        log_registers("flash_fwd")
     log(f"phase 15: kernel 5 vs flash_fwd_block_plain at the edge shapes "
         f"[{card}]")
     flash_worst, flash_cases = check_flash(dev, on_card)

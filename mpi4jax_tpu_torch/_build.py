@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/mpi4jax_tpu_torch/<name>-<hash>.so`` under the checkout,
-where the hash covers the source and the flags.  A library is built at its
-first use and reused while its source is unchanged.  A missing ``nvcc`` or a failed build raises, with nvcc's
-messages.
+where the hash covers the source, the ``csrc/*.cuh`` headers it includes
+(directly or through another header) and the flags.  A library is built at
+its first use and reused while those are unchanged.  A missing ``nvcc`` or
+a failed build raises, with nvcc's messages.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,10 +39,27 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, each once, in the order first included."""
+    paths = [CSRC / f"{name}.cu"]
+    for path in paths:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep not in paths:
+                paths.append(dep)
+    return paths
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def library(name: str) -> ctypes.CDLL:

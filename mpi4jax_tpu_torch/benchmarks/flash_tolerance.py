@@ -70,29 +70,34 @@ from . import gpt_step as gpt_bench
 from . import ring_attention as ring_bench
 
 _MID_TILE = "kt == ((tk + {bk} - 1) / {bk}) / 2"
+# the same test on kp, the tile whose P V kernel 5 issues
+_MID_PV = _MID_TILE.format(bk="kBK").replace("kt", "kp", 1)
 # fault -> [(text in csrc/flash_fwd.cu, its replacement)], each text found
-# exactly once: the bf16/fp16 kernel's line first, then the f32 kernel's
+# exactly once: the bf16/fp16 kernel's lines first, then the f32 kernel's
 FAULTS = {
     "tile": [
-        ("const float p = (seen >> (nt * 4 + e)) & 1u",
-         "const float p = !(" + _MID_TILE.format(bk="kBK")
-         + ") && ((seen >> (nt * 4 + e)) & 1u)"),
+        ("const float p = expf(sc[nt * 4 + e] - mx[hr]);",
+         "const float p = " + _MID_TILE.format(bk="kBK")
+         + " ? 0.f : expf(sc[nt * 4 + e] - mx[hr]);"),
         ("const float p = ok ? expf(x - mx) : 0.f;",
          "const float p = ok && !(" + _MID_TILE.format(bk="kBKF")
          + ") ? expf(x - mx) : 0.f;"),
     ],
     "pv": [
-        ("for (int kk = 0; kk < kBK / 16; ++kk) {",
-         "for (int kk = 0; kk < (" + _MID_TILE.format(bk="kBK")
-         + " ? 0 : kBK / 16); ++kk) {"),
+        ("issue_pv<T, D>(acc, pa, v_prev);",
+         "if (" + _MID_PV + ") wg_commit(); "
+         "else issue_pv<T, D>(acc, pa, v_prev);"),
+        ("issue_pv<T, D>(acc, pa, v_last);",
+         "if (" + _MID_PV + ") wg_commit(); "
+         "else issue_pv<T, D>(acc, pa, v_last);"),
         ("const float pj = __shfl_sync(0xffffffffu, p, j);",
          "const float pj = " + _MID_TILE.format(bk="kBKF")
          + " ? 0.f : __shfl_sync(0xffffffffu, p, j);"),
     ],
     "key": [
-        ("const float p = (seen >> (nt * 4 + e)) & 1u",
-         "const float p = k0 + nt * 8 + t4 * 2 + (e & 1) != tk / 2 && "
-         "((seen >> (nt * 4 + e)) & 1u)"),
+        ("const float p = expf(sc[nt * 4 + e] - mx[hr]);",
+         "const float p = k0 + nt * 8 + t4 * 2 + (e & 1) == tk / 2 ? 0.f : "
+         "expf(sc[nt * 4 + e] - mx[hr]);"),
         ("const float p = ok ? expf(x - mx) : 0.f;",
          "const float p = ok && col != tk / 2 ? expf(x - mx) : 0.f;"),
     ],
@@ -122,9 +127,9 @@ BWD_FAULTS = {
          + ") ? expf(x - lse_r[i]) : 0.f;"),
     ],
     "dkv_tile": [
-        ("const float p = ok ? expf(x - lc[qi]) : 0.f;",
-         "const float p = ok && !(" + _mid("qt", "kT7", "tq")
-         + ") ? expf(x - lc[qi]) : 0.f;"),
+        ("const float p = expf(ok ? x - lc[qi] : -INFINITY);",
+         "const float p = expf(ok && !(" + _mid("qt", "kT7", "tq")
+         + ") ? x - lc[qi] : -INFINITY);"),
         ("const float p = ok ? expf(x - Ls[lane]) : 0.f;",
          "const float p = ok && !(" + _mid("qt", "kTF", "tq")
          + ") ? expf(x - Ls[lane]) : 0.f;"),
@@ -132,8 +137,8 @@ BWD_FAULTS = {
     "delta": [
         ("float ds = p * (dp[nt][e] - dlt_r[hr]);",
          "float ds = p * dp[nt][e];"),
-        ("float ds = p * (dpT[nt][e] - ec[qi]);",
-         "float ds = p * dpT[nt][e];"),
+        ("float ds = p * (dpT[nt * 4 + e] - ec[qi]);",
+         "float ds = p * dpT[nt * 4 + e];"),
         ("float ds = p * (dpv - dlt_r[i]);", "float ds = p * dpv;"),
         ("float ds = p * (dpv - Es[lane]);", "float ds = p * dpv;"),
     ],
@@ -175,7 +180,8 @@ def build_planted(fault: str, name: str = "flash_fwd") -> ctypes.CDLL:
     src.write_text(planted_source(fault, name))
     lib_path = out / f"{name}_{fault}.so"
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(lib_path), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on fault {fault}:\n{proc.stdout}")

@@ -26,45 +26,66 @@
 // dQ), 0.417 ms at 989 TFLOP/s; kernel 7 four (S, dP, dV, dK), 0.556 ms.
 // The bytes (q, k, v, dO read, f32 outputs written) take about 0.16 ms.
 //
-// Design.  The frame of kernel 5 (csrc/flash_fwd.cu): 128 threads, 4 warps
+// Design of kernel 6 (bf16, fp16; flash_bwd_dq_mma): 128 threads, 4 warps
 // of 16 rows; an int32 (q_off, k_off) pair per batch row; tiles streamed
 // through two cp.async stages of dynamic shared memory with rows padded by
 // 8 elements; ldmatrix fragments and mma.sync m16n8k16 with f32
 // accumulators; the accumulator of one product is, register for register,
-// the A fragment of the next.
-// - Kernel 6: a block takes 64 query rows of one batch row and keeps Q and
-//   dO in shared memory; 64-key tiles of K and V stream through.  Per tile
-//   a warp computes S = Q K^T and dP = dO V^T (K and V as B fragments),
-//   turns them into dS in registers and adds dS K (K's fragments through
-//   ldmatrix.trans) to its 16 x D dq accumulator.  The loop stops at the
-//   last tile whose first key a row of the block sees, and the blocks with
-//   the most tiles start first.
-// - Kernel 7: a block takes 64 keys of one batch row and keeps K and V in
-//   shared memory; 32-query tiles of Q, dO, lse and delta stream through.
-//   Per tile a warp computes the transposed scores S^T = K Q^T and
-//   dP^T = V dO^T with keys as rows, so that P^T and dS^T sit in
-//   accumulator layout and become A fragments; dO and Q enter dV += P^T dO
-//   and dK += dS^T Q as B fragments through ldmatrix.trans.  Two f32
-//   accumulators of 16 x D a warp (dk, dv) are what press on registers at
-//   D = 128, hence tiles of 32 queries.  The loop starts at the first tile
-//   that sees a key of the block (the counterpart of _causal_q_index), and
-//   the blocks of the earliest keys, which see the most queries, start
-//   first.
+// the A fragment of the next.  A block takes 64 query rows of one batch row
+// and keeps Q and dO in shared memory; 64-key tiles of K and V stream
+// through.  Per tile a warp computes S = Q K^T and dP = dO V^T (K and V as B
+// fragments), turns them into dS in registers and adds dS K (K's fragments
+// through ldmatrix.trans) to its 16 x D dq accumulator.  The loop stops at
+// the last tile whose first key a row of the block sees, and the blocks
+// with the most tiles start first.  Later work: the design of kernel 7.
+//
+// Design of kernel 7 (bf16, fp16; flash_bwd_dkv_wgmma): only wgmma reaches
+// the tensor cores' full rate on Hopper.  A block of 384 threads takes 128
+// keys of one batch row: warpgroup 0 is the producer, one warp of which
+// issues TMA loads and copies lse and delta (setmaxnreg 40), and
+// warpgroups 1 and 2 are consumers of 64 keys each (setmaxnreg 232), each
+// holding its 64 x D dK and dV in f32 registers.  K and V come once per
+// batch row; 64-query tiles of Q and dO, with their lse and delta, come
+// through two stages of shared memory on full and free mbarriers (Q, dO by
+// TMA in swizzled boxes, csrc/hopper.cuh; 129 KB at D = 128).  Per tile a
+// consumer computes the transposed scores S^T = K Q^T and dP^T = V dO^T,
+// keys as rows, with both operands in shared memory (wgmma m64n64k16), so
+// that P^T and dS^T sit in accumulator layout: rounded to the input type,
+// they are register for register the A operands of dV += P^T dO and
+// dK += dS^T Q, whose B operands dO and Q are read MN-major from the same
+// tiles that served S^T and dP^T K-major.  The mask picks expf's argument,
+// not its result: a select around each expf compiles to branches.  The
+// loop starts at the first tile that sees a key of the block
+// (first_q_tile, csrc/flash_tiles.cuh, the counterpart of
+// _causal_q_index); a warpgroup passes by the tiles before the first that
+// sees one of its keys, and all of them when its keys start past Tk; and
+// the blocks of the earliest keys, which see the most queries, start
+// first.  dK and dV are summed only in the block's loop, tile after tile,
+// and written once.  What bounds it now: a consumer's tile is a chain, the
+// two transposed products, their wait, the elementwise work, the two
+// gradient products and their wait, with the other consumer's chain as the
+// only overlap; S^T and dP^T read both operands from shared memory at 64
+// columns, about the shared memory's bandwidth.  Issuing a tile's S^T and
+// dP^T behind the previous tile's gradients would keep about 224 registers
+// a thread live at D = 128, past the 232 a consumer has: it spilled.
+//
 // f32 inputs take two kernels in full f32 FMAs (no TF32): lane j of a warp
 // scores key j (kernel 6) or query j (kernel 7) of a 32-wide tile, and each
-// lane accumulates its own output columns.  Later work: wgmma, TMA.
+// lane accumulates its own output columns.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kB = 64;         // rows of a block: queries (6) or keys (7)
+constexpr int kThreads = 128;  // kernel 6 and the f32 kernels: 4 warps
+constexpr int kB = 64;         // query rows of a block of kernel 6
 constexpr int kT6 = 64;        // keys per tile of kernel 6
-constexpr int kT7 = 32;        // queries per tile of kernel 7
+constexpr int kThreads7 = 384;  // kernel 7: a producer and two consumers
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kB7 = 128;       // keys of a block of kernel 7
+constexpr int kT7 = 64;        // queries per tile of kernel 7
+constexpr int kStages7 = 2;    // stages of Q, dO, lse and delta tiles
 constexpr int kBF = 16;        // rows of a block (f32)
 constexpr int kTF = 32;        // tile width (f32)
 constexpr int kMaxGridY = 65535;
@@ -116,35 +137,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = Mma<T>::pack(c0[2], c0[3]);
   a[2] = Mma<T>::pack(c1[0], c1[1]);
   a[3] = Mma<T>::pack(c1[2], c1[3]);
-}
-
-// Number of k tiles of width bk that a block of bq query rows starting at
-// local row q0 must visit: all of them, or causally up to the last one whose
-// first key some row of the block sees.
-__device__ __forceinline__ int tiles_to_visit(int tk, int bk, int bq,
-                                              long long q_off, int q0,
-                                              long long k_off, int causal) {
-  int nk = (tk + bk - 1) / bk;
-  if (causal) {
-    const long long last = q_off + q0 + bq - 1 - k_off;  // last visible key
-    if (last < 0) return 0;
-    const long long lim = last / bk + 1;
-    if (lim < nk) nk = (int)lim;
-  }
-  return nk;
-}
-
-// The first q tile of width bq that sees a key of a block whose first key
-// is local key k0 (causal), or 0; nq when none does.
-__device__ __forceinline__ int first_q_tile(int tq, int bq, long long q_off,
-                                            int k0, long long k_off,
-                                            int causal) {
-  const int nq = (tq + bq - 1) / bq;
-  if (!causal) return 0;
-  const long long first = k_off + k0 - q_off;  // first query that sees k0
-  if (first <= 0) return 0;
-  if (first >= tq) return nq;
-  return (int)(first / bq);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -364,176 +356,236 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Kernel 7, bf16 / fp16 inputs: tensor cores, f32 accumulation.
+// Dynamic shared memory of kernel 7, in bytes from a 1024-byte aligned
+// base: K, V, then the stages of Q, of dO, of lse and of delta.
+template <int D>
+struct DkvSmem {
+  static constexpr int kKV = kB7 * D * 2;    // K or V
+  static constexpr int kTile = kT7 * D * 2;  // a tile of Q or dO
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;
+  static constexpr int kDo = kQ + kStages7 * kTile;
+  static constexpr int kLse = kDo + kStages7 * kTile;
+  static constexpr int kDelta = kLse + kStages7 * kT7 * 4;
+  static constexpr int kBytes = kDelta + kStages7 * kT7 * 4;
+};
+
+// Kernel 7, bf16 / fp16 inputs: wgmma, f32 accumulation.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int* __restrict__ offs, float* __restrict__ dk,
-                      float* __restrict__ dv, int bh, int tq, int tk,
-                      int causal, float scale) {
-  constexpr int SQ = D + 8;
-  constexpr int KD = D / 16;   // k steps of K Q^T and V dO^T
+__global__ void __launch_bounds__(kThreads7, 1)
+    flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap q_map,
+                        __grid_constant__ const CUtensorMap k_map,
+                        __grid_constant__ const CUtensorMap v_map,
+                        __grid_constant__ const CUtensorMap do_map,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ offs, float* __restrict__ dk,
+                        float* __restrict__ dv, int bh, int tq, int tk,
+                        int causal, float scale) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
   constexpr int NS = kT7 / 8;  // n tiles of S^T
   constexpr int ND = D / 8;    // n tiles of dK and dV
-  constexpr int TILE = kT7 * SQ;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kB * SQ;
-  T* Qs = Vs + kB * SQ;  // two stages of Q, then two of dO
-  T* Ds = Qs + 2 * TILE;
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * TILE);  // two stages of lse
-  float* Es = Ls + 2 * kT7;                             // and of delta
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const Lanes ln(lane);
+  constexpr int KD = D / 16;   // reduction steps of K Q^T and V dO^T
+  constexpr int KBOX = kB7 * Span<D>::kRowBytes;  // a box of K or V
+  constexpr int QBOX = kT7 * Span<D>::kRowBytes;  // a box of Q or dO
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t kv_full, kv_free, full[kStages7], free_[kStages7];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  float* Ls = reinterpret_cast<float*>(smem + L::kLse);
+  float* Es = reinterpret_cast<float*>(smem + L::kDelta);
+  const int wg = threadIdx.x / 128;
   // the blocks of the earliest keys see the most queries: first
-  const int k0 = blockIdx.x * kB;
-  const int wr = warp * 16;
+  const int blk_k0 = blockIdx.x * kB7;
   const int nq = (tq + kT7 - 1) / kT7;
 
+  if (threadIdx.x == 0) {
+    bar_init(&kv_full, 1);
+    bar_init(&kv_free, kConsumers);
+    for (int s = 0; s < kStages7; ++s) {
+      bar_init(&full[s], 1 + 32);  // the TMA's bytes and the warp's copies
+      bar_init(&free_[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one warp keeps the stages filled
+    regs_down<40>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      tma_prefetch(&q_map);
+      tma_prefetch(&k_map);
+      tma_prefetch(&v_map);
+      tma_prefetch(&do_map);
+    }
+    int it = 0, kvu = 0;  // q tiles and K/V loads so far
+    for (int b = blockIdx.y; b < bh; b += gridDim.y) {
+      const long long qrow = (long long)b * tq;
+      const int t0 = first_q_tile(tq, kT7, offs[2 * b], blk_k0,
+                                  offs[2 * b + 1], causal);
+      if (t0 >= nq) continue;
+      if (lane == 0) {
+        bar_wait(&kv_free, (kvu & 1) ^ 1);
+        bar_arrive_tx(&kv_full, 2 * L::kKV);
+        for (int x = 0; x < Span<D>::kBoxes; ++x) {
+          tma_load(smem + L::kK + x * KBOX, &k_map, x * Span<D>::kCols,
+                   blk_k0, b, &kv_full);
+          tma_load(smem + L::kV + x * KBOX, &v_map, x * Span<D>::kCols,
+                   blk_k0, b, &kv_full);
+        }
+      }
+      ++kvu;
+      for (int qt = t0; qt < nq; ++qt, ++it) {
+        const int st = it % kStages7;
+        bar_wait(&free_[st], ((it / kStages7) & 1) ^ 1);
+        if (lane == 0) {
+          bar_arrive_tx(&full[st], 2 * L::kTile);
+          for (int x = 0; x < Span<D>::kBoxes; ++x) {
+            tma_load(smem + L::kQ + st * L::kTile + x * QBOX, &q_map,
+                     x * Span<D>::kCols, qt * kT7, b, &full[st]);
+            tma_load(smem + L::kDo + st * L::kTile + x * QBOX, &do_map,
+                     x * Span<D>::kCols, qt * kT7, b, &full[st]);
+          }
+        }
+        // lse and delta of the tile's queries; a query past Tq reads zeros
+        for (int i = lane; i < kT7; i += 32) {
+          const int r = qt * kT7 + i;
+          Ls[st * kT7 + i] = r < tq ? lse[qrow + r] : 0.f;
+          Es[st * kT7 + i] = r < tq ? delta[qrow + r] : 0.f;
+        }
+        bar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: 64 keys, 16 a warp
+  regs_up<232>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blk_k0 + 64 * cw;  // this warpgroup's first key
+  int it = 0, kvu = 0;
   for (int b = blockIdx.y; b < bh; b += gridDim.y) {
     const int q_off = offs[2 * b], k_off = offs[2 * b + 1];
-    const long long qrow = (long long)b * tq;
-    const T* qb = q + qrow * D;
-    const T* db = dout + qrow * D;
-    const int t0 = first_q_tile(tq, kT7, q_off, k0, k_off, causal);
-
-    // Q, dO, lse and delta of q tile qt into stage (qt - t0) & 1; a query
-    // past Tq reads zeros
-    auto load_q = [&](int qt) {
-      const int st = (qt - t0) & 1, r0 = qt * kT7;
-      load_rows<T, D>(Qs + st * TILE, qb, r0, kT7, tq, tid);
-      load_rows<T, D>(Ds + st * TILE, db, r0, kT7, tq, tid);
-      cp_async_commit();
-      for (int i = tid; i < kT7; i += kThreads) {
-        const int r = r0 + i;
-        Ls[st * kT7 + i] = r < tq ? lse[qrow + r] : 0.f;
-        Es[st * kT7 + i] = r < tq ? delta[qrow + r] : 0.f;
-      }
-    };
-
-    __syncthreads();  // the previous batch row's tiles are consumed
-    if (t0 < nq) {
-      load_rows<T, D>(Ks, k + (long long)b * tk * D, k0, kB, tk, tid);
-      load_rows<T, D>(Vs, v + (long long)b * tk * D, k0, kB, tk, tid);
-      cp_async_commit();
-      load_q(t0);
-    }
-
+    const int t0 = first_q_tile(tq, kT7, q_off, blk_k0, k_off, causal);
+    // the q tiles before t0w hold no query that sees a key of this
+    // warpgroup (none does when its keys start past Tk)
+    const int t0w =
+        k0 < tk ? first_q_tile(tq, kT7, q_off, k0, k_off, causal) : nq;
     // keys g and g + 8 of this warp: global position, and whether in Tk
     int key_pos[2];
     bool key_in[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = k0 + wr + g + 8 * hr;
+      const int r = k0 + 16 * warp + g + 8 * hr;
       key_pos[hr] = k_off + r;
       key_in[hr] = r < tk;
     }
-    float adk[ND][4], adv[ND][4];
+    float adk[ND * 4], adv[ND * 4];
 #pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) adk[dn][e] = adv[dn][e] = 0.f;
+    for (int i = 0; i < ND * 4; ++i) adk[i] = adv[i] = 0.f;
+    if (t0 < nq) bar_wait(&kv_full, kvu & 1);
 
-    for (int qt = t0; qt < nq; ++qt) {
-      const int q0t = qt * kT7, st = (qt - t0) & 1;
-      if (qt + 1 < nq) {
-        load_q(qt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* qc = Qs + st * TILE;
-      const T* dc = Ds + st * TILE;
+    for (int qt = t0; qt < nq; ++qt, ++it) {
+      const int q0t = qt * kT7, st = it % kStages7;
+      const uint32_t qc = base + L::kQ + st * L::kTile;
+      const uint32_t dc = base + L::kDo + st * L::kTile;
       const float* lc = Ls + st * kT7;
       const float* ec = Es + st * kT7;
-
-      // S^T = K Q^T and dP^T = V dO^T, this warp's 16 keys as rows
-      float sT[NS][4], dpT[NS][4];
+      bar_wait(&full[st], (it / kStages7) & 1);
+      if (qt >= t0w) {
+        // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 keys as rows
+        float sT[NS * 4], dpT[NS * 4];
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
+        for (int i = 0; i < NS * 4; ++i) sT[i] = dpT[i] = 0.f;
+        wg_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sT[nt][e] = dpT[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KD; ++ks) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, Ks + (wr + ln.a_row) * SQ + ks * 16 + ln.a_col);
-        ldmatrix_x4(va, Vs + (wr + ln.a_row) * SQ + ks * 16 + ln.a_col);
-#pragma unroll
-        for (int nt = 0; nt < NS; nt += 2) {
-          uint32_t bq[4], bd[4];
-          const int at = (nt * 8 + ln.b_row) * SQ + ks * 16 + ln.b_col;
-          ldmatrix_x4(bq, qc + at);
-          Mma<T>::run(sT[nt], ka, bq[0], bq[1]);
-          Mma<T>::run(sT[nt + 1], ka, bq[2], bq[3]);
-          ldmatrix_x4(bd, dc + at);
-          Mma<T>::run(dpT[nt], va, bd[0], bd[1]);
-          Mma<T>::run(dpT[nt + 1], va, bd[2], bd[3]);
+        for (int ks = 0; ks < KD; ++ks) {
+          Wgmma<T, kT7>::ss(sT, desc_k<D>(base + L::kK, kB7, 64 * cw, ks),
+                            desc_k<D>(qc, kT7, 0, ks), ks > 0);
+          Wgmma<T, kT7>::ss(dpT, desc_k<D>(base + L::kV, kB7, 64 * cw, ks),
+                            desc_k<D>(dc, kT7, 0, ks), ks > 0);
         }
-      }
+        wg_commit();
+        wg_wait<0>();
+        hold(sT);
+        hold(dpT);
 
-      // p^T and dS^T: accumulator e of tile nt sits at key g + 8 (e >> 1),
-      // query nt * 8 + 2 t4 + (e & 1) of the tile
-      const bool whole = q0t + kT7 <= tq && k0 + kB <= tk &&
-                         (!causal || k_off + k0 + kB - 1 <= q_off + q0t);
+        // p^T and dS^T: accumulator e of n-tile nt sits at key
+        // g + 8 (e >> 1) of the warp, query nt * 8 + 2 t4 + (e & 1) of the
+        // tile
+        const bool whole = q0t + kT7 <= tq && k0 + 64 <= tk &&
+                           (!causal || k_off + k0 + 63 <= q_off + q0t);
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
+        for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1, qi = nt * 8 + t4 * 2 + (e & 1);
-          float x = sT[nt][e];
-          if (scale != 1.f) x *= scale;
-          bool ok = true;
-          if (!whole)
-            ok = key_in[hr] && q0t + qi < tq &&
-                 (!causal || key_pos[hr] <= q_off + q0t + qi);
-          const float p = ok ? expf(x - lc[qi]) : 0.f;
-          float ds = p * (dpT[nt][e] - ec[qi]);
-          if (scale != 1.f) ds *= scale;
-          sT[nt][e] = p;
-          dpT[nt][e] = ds;
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e >> 1, qi = nt * 8 + t4 * 2 + (e & 1);
+            float x = sT[nt * 4 + e];
+            if (scale != 1.f) x *= scale;
+            bool ok = true;
+            if (!whole)
+              ok = key_in[hr] && q0t + qi < tq &&
+                   (!causal || key_pos[hr] <= q_off + q0t + qi);
+            // the mask picks expf's argument, not its result, so that
+            // every p is one expf and a masked p is 0 exactly
+            const float p = expf(ok ? x - lc[qi] : -INFINITY);
+            float ds = p * (dpT[nt * 4 + e] - ec[qi]);
+            if (scale != 1.f) ds *= scale;
+            sT[nt * 4 + e] = p;
+            dpT[nt * 4 + e] = ds;
+          }
         }
-      }
 
-      // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to the input
-      // type; dO's and Q's fragments come transposed out of their tiles
+        // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to the input
+        // type; dO and Q read MN-major from their tiles
+        uint32_t pa[kT7 / 16][4], sa[kT7 / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kT7 / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        to_a<T>(pa, sT[2 * kk], sT[2 * kk + 1]);
-        to_a<T>(sa, dpT[2 * kk], dpT[2 * kk + 1]);
-        const int at = (kk * 16 + ln.t_row) * SQ + ln.t_col;
+        for (int j = 0; j < kT7 / 16; ++j) {
 #pragma unroll
-        for (int dn = 0; dn < ND; dn += 2) {
-          uint32_t bd[4], bq[4];
-          ldmatrix_x4_trans(bd, dc + at + dn * 8);
-          Mma<T>::run(adv[dn], pa, bd[0], bd[1]);
-          Mma<T>::run(adv[dn + 1], pa, bd[2], bd[3]);
-          ldmatrix_x4_trans(bq, qc + at + dn * 8);
-          Mma<T>::run(adk[dn], sa, bq[0], bq[1]);
-          Mma<T>::run(adk[dn + 1], sa, bq[2], bq[3]);
+          for (int r = 0; r < 4; ++r) {
+            pa[j][r] = pack2<T>(sT[8 * j + 2 * r], sT[8 * j + 2 * r + 1]);
+            sa[j][r] = pack2<T>(dpT[8 * j + 2 * r], dpT[8 * j + 2 * r + 1]);
+          }
         }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kT7 / 16; ++kk) {
+          Wgmma<T, D>::rs(adv, pa[kk], desc_mn<D>(dc, kT7, kk));
+          Wgmma<T, D>::rs(adk, sa[kk], desc_mn<D>(qc, kT7, kk));
+        }
+        wg_commit();
+        wg_wait<0>();
+        hold(adv);
+        hold(adk);
+        hold(pa);
+        hold(sa);
       }
-      __syncthreads();  // this stage is consumed before tile qt + 2 lands
+      bar_arrive(&free_[st]);
+    }
+    if (t0 < nq) {
+      bar_arrive(&kv_free);
+      ++kvu;
     }
 
     const long long krow = (long long)b * tk;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = k0 + wr + g + 8 * hr;
+      const int r = k0 + 16 * warp + g + 8 * hr;
       if (r >= tk) continue;
 #pragma unroll
       for (int dn = 0; dn < ND; ++dn) {
         const long long at = (krow + r) * D + dn * 8 + t4 * 2;
         *reinterpret_cast<float2*>(dk + at) =
-            make_float2(adk[dn][2 * hr], adk[dn][2 * hr + 1]);
+            make_float2(adk[dn * 4 + 2 * hr], adk[dn * 4 + 2 * hr + 1]);
         *reinterpret_cast<float2*>(dv + at) =
-            make_float2(adv[dn][2 * hr], adv[dn][2 * hr + 1]);
+            make_float2(adv[dn * 4 + 2 * hr], adv[dn * 4 + 2 * hr + 1]);
       }
     }
   }
@@ -748,6 +800,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct Args {
+  int kind;  // 0 f32, 1 bf16, 2 fp16
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   const int* offs;
@@ -787,16 +840,20 @@ int launch_dq_mma(const Args& a) {
 }
 
 template <typename T, int D>
-int launch_dkv_mma(const Args& a) {
-  const int smem = (2 * kB + 4 * kT7) * (D + 8) * (int)sizeof(T) +
-                   4 * kT7 * (int)sizeof(float);
-  int err = allow_smem(flash_bwd_dkv_mma<T, D>, smem);
+int launch_dkv_wgmma(const Args& a) {
+  CUtensorMap qm, km, vm, dm;
+  int err = hopper::make_map(&qm, a.q, a.kind, D, a.tq, a.bh, kT7);
+  if (!err) err = hopper::make_map(&dm, a.dout, a.kind, D, a.tq, a.bh, kT7);
+  if (!err) err = hopper::make_map(&km, a.k, a.kind, D, a.tk, a.bh, kB7);
+  if (!err) err = hopper::make_map(&vm, a.v, a.kind, D, a.tk, a.bh, kB7);
   if (err) return err;
-  flash_bwd_dkv_mma<T, D><<<grid_of(a.tk, kB, a.bh), kThreads, smem,
-                            a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.offs, a.out1, a.out2, a.bh, a.tq, a.tk, a.causal, a.scale);
+  const int smem = DkvSmem<D>::kBytes + 1024;  // + the base's alignment
+  err = allow_smem(flash_bwd_dkv_wgmma<T, D>, smem);
+  if (err) return err;
+  flash_bwd_dkv_wgmma<T, D><<<grid_of(a.tk, kB7, a.bh), kThreads7, smem,
+                              a.stream>>>(
+      qm, km, vm, dm, a.lse, a.delta, a.offs, a.out1, a.out2, a.bh, a.tq,
+      a.tk, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -833,10 +890,11 @@ int launch_kind(const Args& a, int kind, bool dkv) {
   switch (kind) {
     case 0: return dkv ? launch_dkv_f32<D>(a) : launch_dq_f32<D>(a);
     case 1:
-      return dkv ? launch_dkv_mma<__nv_bfloat16, D>(a)
+      return dkv ? launch_dkv_wgmma<__nv_bfloat16, D>(a)
                  : launch_dq_mma<__nv_bfloat16, D>(a);
     case 2:
-      return dkv ? launch_dkv_mma<__half, D>(a) : launch_dq_mma<__half, D>(a);
+      return dkv ? launch_dkv_wgmma<__half, D>(a)
+                 : launch_dq_mma<__half, D>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -864,7 +922,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* offs, void* dq, int bh, int tq,
                                    int tk, int d, int kind, int causal,
                                    float scale, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+  const Args a{kind, q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta),
                static_cast<const int*>(offs), static_cast<float*>(dq),
                nullptr, bh, tq, tk, causal, scale,
@@ -879,12 +937,24 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* offs, void* dk, void* dv,
                                     int bh, int tq, int tk, int d, int kind,
                                     int causal, float scale, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+  const Args a{kind, q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta),
                static_cast<const int*>(offs), static_cast<float*>(dk),
                static_cast<float*>(dv), bh, tq, tk, causal, scale,
                static_cast<cudaStream_t>(stream)};
   return launch(a, d, kind, true);
+}
+
+// The dynamic shared memory a launch of kernel 7's wgmma kernel asks for at
+// head size d, in bytes; -1 for a head size it is not built for.
+extern "C" int flash_smem_bytes(int d) {
+  switch (d) {
+    case 16: return DkvSmem<16>::kBytes + 1024;
+    case 32: return DkvSmem<32>::kBytes + 1024;
+    case 64: return DkvSmem<64>::kBytes + 1024;
+    case 128: return DkvSmem<128>::kBytes + 1024;
+    default: return -1;
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -21,325 +21,337 @@
 // 2.749e11 flop per full forward (2 * 2 * B * H * T^2 * D * 0.5), 0.278 ms
 // at 989 TFLOP/s; one full 1024 x 1024 block pair of a 4-rank ring step
 // (BH 64) is 0.0347 ms.  The bytes (q, k, v read, o, m, l written) are a
-// few hundred MB at most: an order below.
+// few hundred MB at most: an order below.  GPT-2's B8 T1024 H12 D64 is
+// bound by its bytes (0.019 ms).
 //
-// Design.  A block takes 64 query rows (4 warps of 16) of one batch row
-// and keeps their Q fragments in registers; 64-key tiles of K and V stream
-// through two stages of dynamic shared memory, 68 KB at D = 128
-// (cudaFuncSetAttribute above 48 KB; Q passes through a K stage on its way
-// to the registers), so that three blocks share an SM within 170
-// registers a thread: cp.async brings tile kt + 1 while tile kt is
-// consumed.  Rows are padded by 8 elements so that ldmatrix
-// reads hit 32 banks; ldmatrix hands out the K fragments, and with .trans
-// the V fragments from V's row-major tile.  Q K^T and P V run on the tensor
-// cores through mma.sync m16n8k16 with f32 accumulators; the S accumulator
-// of one tile is, register for register, the A fragment of P V, so P never
-// leaves registers.  Causal skipping: the loop over k tiles stops at the
-// last tile whose first key a row of the block can see (q_start + 63 >=
-// k_start), the counterpart of both pl.when(should_run) and the index-map
-// clamp, so masked tiles cost neither loads nor compute; a tile that every
-// row sees in full skips the mask, and the blocks with the most tiles start
-// first.  f32 inputs take a second kernel in full f32 FMAs (no TF32): lane
-// j of a warp scores key j of a 32-key tile, and each lane accumulates its
-// own output columns.  Later work: wgmma, TMA and a producer warp.
+// Design (bf16, fp16; flash_fwd_wgmma): only wgmma reaches the tensor
+// cores' full rate on Hopper, so the products are wgmma's and the rest
+// feeds them.  A block of 384 threads takes 128 query rows of one batch
+// row: warpgroup 0 is the producer, whose one thread issues TMA loads and
+// then gives its registers away (setmaxnreg 24); warpgroups 1 and 2 are
+// consumers of 64 rows each (setmaxnreg 240).  Q comes once per batch row;
+// 128-key tiles of K and V come through two stages of shared memory, each
+// stage's K and V with their own full and free mbarriers, so the producer
+// refills K while V is still in use.  Tiles are TMA's swizzled boxes
+// (csrc/hopper.cuh): 160 KB at D = 128, one block per SM (the consumers'
+// registers allow no second).  A consumer computes S = Q K^T as 64 x 128
+// with Q and K from shared memory (wgmma m64n128k16, f32 accumulators),
+// the online softmax in registers, and O += P V with P's fragments in
+// registers (the S accumulator, rounded to the input type, is register for
+// register the A operand) and V read MN-major from its row-major tile.  It
+// issues tile kt's S with tile kt - 1's P V behind it and runs tile kt's
+// softmax while that P V is on the tensor cores; the two consumers' turns
+// interleave on their own.  Every mbarrier wait precedes the fence of the
+// products it feeds: ptxas serializes all of a kernel's products if a wait
+// falls between two of them.  A masked score is -inf, so that expf alone
+// gives it p = 0 and no branch surrounds an expf (a select around each
+// expf compiles to a branch per score, which cost more than the products).
+// Causal skipping: a block visits k tiles up to the last one whose first
+// key one of its rows within Tq sees (tiles_to_visit, csrc/flash_tiles.cuh),
+// the counterpart of both pl.when(should_run) and the index-map clamp; a
+// warpgroup none of whose rows sees a visited tile passes it by; a tile
+// that every row of a warpgroup sees in full skips the mask; and the blocks
+// with the most tiles start first.  Rows past Tq and keys past Tk read
+// zeros (TMA's bounds), and the mask gives those keys p = 0 all the same.
+// What holds it near a third of its bound (PERF.md): a consumer's softmax,
+// 64 accurate expf a thread per tile, runs on one warp of each SM quarter
+// while only the other consumer's products can overlap it.  f32 inputs
+// take a second kernel in full f32 FMAs (no TF32): lane j of a warp scores
+// key j of a 32-key tile, and each lane accumulates its own output
+// columns.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBQ = 64;        // query rows per block (half types)
-constexpr int kBK = 64;        // keys per tile (half types)
+constexpr int kThreads = 128;  // f32: 4 warps
+constexpr int kThreads5 = 384;  // bf16/fp16: a producer and two consumers
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kBQ = 128;       // query rows per block (half types)
+constexpr int kBK = 128;       // keys per tile (half types)
+constexpr int kStages = 2;     // stages of K and V tiles
 constexpr int kBQF = 16;       // query rows per block (f32)
 constexpr int kBKF = 32;       // keys per tile (f32)
 constexpr int kMaxGridY = 65535;
 
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // two f32 values rounded to the input type, the first in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+// Dynamic shared memory of the wgmma kernel, in bytes from a 1024-byte
+// aligned base: Q, then the stages of K, then those of V.
+template <int D>
+struct FwdSmem {
+  static_assert(kBQ == kBK, "Q's tile is a K tile's size");
+  static constexpr int kTile = kBK * D * 2;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kTile * (1 + kStages);
+  static constexpr int kBytes = kTile * (1 + 2 * kStages);
 };
 
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Number of k tiles of width bk that a block of bq rows starting at local
-// row q0 must visit: all of them, or causally up to the last one whose
-// first key some row of the block sees.
-__device__ __forceinline__ int tiles_to_visit(int tk, int bk, int bq,
-                                              long long q_off, int q0,
-                                              long long k_off, int causal) {
-  int nk = (tk + bk - 1) / bk;
-  if (causal) {
-    const long long last = q_off + q0 + bq - 1 - k_off;  // last visible key
-    if (last < 0) return 0;
-    const long long lim = last / bk + 1;
-    if (lim < nk) nk = (int)lim;
-  }
-  return nk;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared without a register round trip; zeros when
-// !valid (src points at a valid row all the same)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// four 8x8 b16 matrices from shared memory, lane l naming row l % 8 of
-// matrix l / 8; .trans hands each thread a column pair instead of a row pair
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// bf16 / fp16 inputs: tensor cores, f32 accumulation.
+// S = Q K^T of one tile for a consumer's 64 rows (rows row0 .. row0 + 63 of
+// the Q tile at q_tile), against the 128 keys of the K tile at k_tile:
+// issued and committed as one group.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 3)
-    flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ offs,
-                  float* __restrict__ o, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int bh, int tq, int tk,
-                  int causal, float scale) {
-  constexpr int SQ = D + 8;    // row stride of every tile (elements)
-  constexpr int KD = D / 16;   // k steps of Q K^T
-  constexpr int NS = kBK / 8;  // n tiles of S (one uint32 of mask bits)
+__device__ __forceinline__ void issue_scores(float (&sc)[kBK / 2],
+                                             uint32_t q_tile, int row0,
+                                             uint32_t k_tile) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    Wgmma<T, kBK>::ss(sc, desc_k<D>(q_tile, kBQ, row0, ks),
+                      desc_k<D>(k_tile, kBK, 0, ks), ks > 0);
+  wg_commit();
+}
+
+// O += P V of one tile, P's fragments in registers and V read MN-major
+// from its row-major tile at v_tile: issued and committed as one group.
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t v_tile) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    Wgmma<T, D>::rs(acc, pa[kk], desc_mn<D>(v_tile, kBK, kk));
+  wg_commit();
+}
+
+// The online softmax of scored tile kt, in place: sc holds the scores of a
+// thread's rows g and g + 8 (accumulator e of n-tile nt at row
+// g + 8 * (e >> 1), column nt * 8 + 2 * t4 + (e & 1)) and leaves with their
+// p; m_r and l_r are the rows' running maxima and this thread's share of
+// their sums, alpha what O is to be multiplied by.  A tile that every row of
+// the warpgroup (first row q0) sees in full needs no mask.  A masked score
+// is -inf: the maximum, which starts at -1e30, stays finite, and expf gives
+// the score p = 0 exactly.
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kBK / 2], float (&m_r)[2], float (&l_r)[2], float (&alpha)[2],
+    int kt, int tk, int q0, int q_off, int k_off, const int (&row_pos)[2],
+    int t4, int causal, float scale) {
+  constexpr int NS = kBK / 8;  // n tiles of S
+  const int k0 = kt * kBK;
+  const bool whole =
+      k0 + kBK <= tk && (!causal || k_off + k0 + kBK - 1 <= q_off + q0);
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      float x = sc[nt * 4 + e];
+      if (scale != 1.f) x *= scale;
+      if (!whole) {
+        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
+        const bool ok = col < tk && (!causal || k_off + col <= row_pos[hr]);
+        x = ok ? x : -INFINITY;
+      }
+      sc[nt * 4 + e] = x;
+      mx[hr] = fmaxf(mx[hr], x);
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    alpha[hr] = expf(m_r[hr] - mx[hr]);
+    m_r[hr] = mx[hr];
+  }
+  float ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      const float p = expf(sc[nt * 4 + e] - mx[hr]);
+      sc[nt * 4 + e] = p;
+      ls[hr] += p;
+    }
+  }
+  l_r[0] = l_r[0] * alpha[0] + ls[0];
+  l_r[1] = l_r[1] * alpha[1] + ls[1];
+}
+
+// O rescaled by alpha, and P rounded to the input type: the A fragments of
+// its P V (those of n-tiles 2j and 2j + 1 for reduction step j).
+template <typename T, int D>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
+                                                 uint32_t (&pa)[kBK / 16][4],
+                                                 const float (&sc)[kBK / 2],
+                                                 const float (&alpha)[2]) {
+  using hopper::pack2;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) {
+    pa[j][0] = pack2<T>(sc[8 * j], sc[8 * j + 1]);
+    pa[j][1] = pack2<T>(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[j][2] = pack2<T>(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[j][3] = pack2<T>(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+// bf16 / fp16 inputs: wgmma, f32 accumulation.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads5, 1)
+    flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
+                    __grid_constant__ const CUtensorMap k_map,
+                    __grid_constant__ const CUtensorMap v_map,
+                    const int* __restrict__ offs, float* __restrict__ o,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    int bh, int tq, int tk, int causal, float scale) {
+  using namespace hopper;
+  using L = FwdSmem<D>;
+  constexpr int NS = kBK / 8;  // n tiles of S
   constexpr int ND = D / 8;    // n tiles of O
-  constexpr int CH = D / 8;    // 16-byte chunks of a row
-  constexpr int TILE = kBK * SQ;
-  static_assert(NS * 4 == 32, "one mask bit per S accumulator");
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);  // two stages of K, then two of V
-  T* Vs = Ks + 2 * TILE;
-  T* Qs = Ks + TILE;  // Q passes through K's second stage into registers
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  constexpr int BOX = kBK * Span<D>::kRowBytes;  // one box of a tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t q_full, q_free;
+  __shared__ uint64_t k_full[kStages], k_free[kStages];
+  __shared__ uint64_t v_full[kStages], v_free[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const int wg = threadIdx.x / 128;
   // the blocks with the most causal work first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int wr = warp * 16;  // this warp's first row in the block
-  // this lane's row in the ldmatrix groups: K (two key tiles, two column
-  // halves) and V (two key halves, two column tiles)
-  const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
+  const int blk_q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int rows = min(kBQ, tq - blk_q0);  // the block's rows within Tq
 
+  if (threadIdx.x == 0) {
+    bar_init(&q_full, 1);
+    bar_init(&q_free, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&k_full[s], 1);
+      bar_init(&k_free[s], kConsumers);
+      bar_init(&v_full[s], 1);
+      bar_init(&v_free[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one thread keeps the stages filled
+    regs_down<24>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch(&q_map);
+    tma_prefetch(&k_map);
+    tma_prefetch(&v_map);
+    int it = 0, qu = 0;  // tiles and Q loads so far
+    for (int b = blockIdx.y; b < bh; b += gridDim.y) {
+      const int nk = tiles_to_visit(tk, kBK, rows, offs[2 * b], blk_q0,
+                                    offs[2 * b + 1], causal);
+      if (nk == 0) continue;
+      bar_wait(&q_free, (qu++ & 1) ^ 1);
+      bar_arrive_tx(&q_full, L::kTile);
+      for (int x = 0; x < Span<D>::kBoxes; ++x)
+        tma_load(smem + x * BOX, &q_map, x * Span<D>::kCols, blk_q0, b,
+                 &q_full);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kStages;
+        const uint32_t free_par = ((it / kStages) & 1) ^ 1;
+        bar_wait(&k_free[s], free_par);
+        bar_arrive_tx(&k_full[s], L::kTile);
+        for (int x = 0; x < Span<D>::kBoxes; ++x)
+          tma_load(smem + L::kK + s * L::kTile + x * BOX, &k_map,
+                   x * Span<D>::kCols, kt * kBK, b, &k_full[s]);
+        bar_wait(&v_free[s], free_par);
+        bar_arrive_tx(&v_full[s], L::kTile);
+        for (int x = 0; x < Span<D>::kBoxes; ++x)
+          tma_load(smem + L::kV + s * L::kTile + x * BOX, &v_map,
+                   x * Span<D>::kCols, kt * kBK, b, &v_full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: 64 rows, 16 a warp
+  regs_up<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blk_q0 + 64 * cw;  // this warpgroup's first row
+  int it = 0, qu = 0;  // tiles and Q loads so far
   for (int b = blockIdx.y; b < bh; b += gridDim.y) {
     const int q_off = offs[2 * b], k_off = offs[2 * b + 1];
-    const T* qb = q + (long long)b * tq * D;
-    const T* kb = k + (long long)b * tk * D;
-    const T* vb = v + (long long)b * tk * D;
-    const int nk = tiles_to_visit(tk, kBK, kBQ, q_off, q0, k_off, causal);
-
-    auto load_kv = [&](int kt) {
-      const int k0 = kt * kBK;
-      T* kd = Ks + (kt & 1) * TILE;
-      T* vd = Vs + (kt & 1) * TILE;
-      for (int c = tid; c < kBK * CH; c += kThreads) {
-        const int r = c / CH, cc = (c % CH) * 8;
-        const bool in = k0 + r < tk;
-        const long long at = (long long)(in ? k0 + r : 0) * D + cc;
-        cp_async16(kd + r * SQ + cc, kb + at, in);
-        cp_async16(vd + r * SQ + cc, vb + at, in);
-      }
-      cp_async_commit();
-    };
-
-    __syncthreads();  // the previous batch row's tiles are consumed
-    for (int c = tid; c < kBQ * CH; c += kThreads) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const bool in = q0 + r < tq;
-      cp_async16(Qs + r * SQ + cc, qb + (long long)(in ? q0 + r : 0) * D + cc,
-                 in);
-    }
-    cp_async_commit();
-    if (nk > 0) {
-      load_kv(0);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t qa[KD][4];
+    const int nk = tiles_to_visit(tk, kBK, rows, q_off, blk_q0, k_off, causal);
+    // the tiles from nkw on hold no key that a row of this warpgroup sees
+    const int nkw = q0 < tq ? tiles_to_visit(tk, kBK, min(64, tq - q0), q_off,
+                                             q0, k_off, causal)
+                            : 0;
+    float acc[ND * 4];
 #pragma unroll
-    for (int ks = 0; ks < KD; ++ks) {
-      const T* base = Qs + (wr + g) * SQ + ks * 16 + t4 * 2;
-      qa[ks][0] = ld32(base);               // row g, columns 2t, 2t+1
-      qa[ks][1] = ld32(base + 8 * SQ);      // row g+8
-      qa[ks][2] = ld32(base + 8);           // row g, columns 2t+8, 2t+9
-      qa[ks][3] = ld32(base + 8 * SQ + 8);  // row g+8
-    }
-    __syncthreads();  // Q is in registers before tile 1 lands on it
-
-    float acc[ND][4];
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+    for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
     float m_r[2] = {kNegInf, kNegInf};  // rows g and g+8
     float l_r[2] = {0.f, 0.f};          // this thread's share of the sums
-    const int row_pos[2] = {q_off + q0 + wr + g, q_off + q0 + wr + g + 8};
+    const int row_pos[2] = {q_off + q0 + 16 * warp + g,
+                            q_off + q0 + 16 * warp + g + 8};
+    if (nk > 0) bar_wait(&q_full, qu & 1);
 
-    for (int kt = 0; kt < nk; ++kt) {
-      const int k0 = kt * kBK;
-      // tile kt + 1 in flight while tile kt is consumed
-      if (kt + 1 < nk) {
-        load_kv(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* kc = Ks + (kt & 1) * TILE;
-      const T* vc = Vs + (kt & 1) * TILE;
-
-      // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-      float s[NS][4];
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NS; nt += 2) {
-#pragma unroll
-        for (int ks = 0; ks < KD; ++ks) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, kc + (nt * 8 + k_row) * SQ + ks * 16 + k_col);
-          Mma<T>::run(s[nt], qa[ks], bk[0], bk[1]);
-          Mma<T>::run(s[nt + 1], qa[ks], bk[2], bk[3]);
-        }
-      }
-
-      // scale, mask, row maxima; accumulator e of tile nt sits at row
-      // g + 8 * (e >> 1), column nt * 8 + 2 * t4 + (e & 1).  A tile that
-      // every row of the block sees in full needs no mask.
-      const bool whole = k0 + kBK <= tk &&
-                         (!causal || k_off + k0 + kBK - 1 <= q_off + q0);
-      uint32_t seen = 0xffffffffu;
-      float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          float x = s[nt][e];
-          if (scale != 1.f) x *= scale;
-          if (!whole) {
-            const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-            const bool ok =
-                col < tk && (!causal || k_off + col <= row_pos[hr]);
-            x = ok ? x : kNegInf;
-            if (!ok) seen &= ~(1u << (nt * 4 + e));
-          }
-          s[nt][e] = x;
-          mx[hr] = fmaxf(mx[hr], x);
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-        alpha[hr] = expf(m_r[hr] - mx[hr]);
-        m_r[hr] = mx[hr];
-      }
-      float ls[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          const float p = (seen >> (nt * 4 + e)) & 1u
-                              ? expf(s[nt][e] - mx[hr]) : 0.f;
-          s[nt][e] = p;
-          ls[hr] += p;
-        }
-      }
-      l_r[0] = l_r[0] * alpha[0] + ls[0];
-      l_r[1] = l_r[1] * alpha[1] + ls[1];
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        acc[dn][0] *= alpha[0];
-        acc[dn][1] *= alpha[0];
-        acc[dn][2] *= alpha[1];
-        acc[dn][3] *= alpha[1];
-      }
-
-      // O += P V, P rounded to the input type; V's fragments come
-      // transposed out of its row-major tile
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const T* vr = vc + (kk * 16 + v_row) * SQ + v_col;
-#pragma unroll
-        for (int dn = 0; dn < ND; dn += 2) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vr + dn * 8);
-          Mma<T>::run(acc[dn], pa, bv[0], bv[1]);
-          Mma<T>::run(acc[dn + 1], pa, bv[2], bv[3]);
-        }
-      }
-      __syncthreads();  // this stage is consumed before tile kt + 2 lands
+    // Tile kt's S = Q K^T is issued with, behind it, tile kt - 1's
+    // O += P V, and tile kt's softmax runs while that P V is on the tensor
+    // cores.  The warpgroup computes tiles 0 .. nc - 1 and passes by the
+    // rest.
+    const int nc = min(nk, nkw);
+    float sc[NS * 4], alpha[2];
+    uint32_t pa[kBK / 16][4];  // P of the tile before, the A of its P V
+    if (nc > 0) {
+      const int s = it % kStages;
+      bar_wait(&k_full[s], (it / kStages) & 1);
+      issue_scores<T, D>(sc, base, 64 * cw, base + L::kK + s * L::kTile);
+      wg_wait<0>();
+      hold(sc);
+      bar_arrive(&k_free[s]);
+      online_softmax(sc, m_r, l_r, alpha, 0, tk, q0, q_off, k_off, row_pos,
+                     t4, causal, scale);
+      rescale_and_pack<T, D>(acc, pa, sc, alpha);
+    }
+    for (int kt = 1; kt < nc; ++kt) {
+      const int kp = kt - 1;
+      const int s = (it + kt) % kStages, sp = (it + kp) % kStages;
+      // both waits before the products: a wait between two products would
+      // have ptxas serialize every product of the kernel
+      bar_wait(&k_full[s], ((it + kt) / kStages) & 1);
+      bar_wait(&v_full[sp], ((it + kp) / kStages) & 1);
+      issue_scores<T, D>(sc, base, 64 * cw, base + L::kK + s * L::kTile);
+      const uint32_t v_prev = base + L::kV + sp * L::kTile;
+      issue_pv<T, D>(acc, pa, v_prev);
+      wg_wait<1>();  // S is in; P V may still run
+      hold(sc);
+      bar_arrive(&k_free[s]);
+      online_softmax(sc, m_r, l_r, alpha, kt, tk, q0, q_off, k_off, row_pos,
+                     t4, causal, scale);
+      wg_wait<0>();  // P V of tile kp is in
+      hold(acc);
+      hold(pa);
+      bar_arrive(&v_free[sp]);
+      rescale_and_pack<T, D>(acc, pa, sc, alpha);
+    }
+    if (nc > 0) {
+      const int kp = nc - 1, sp = (it + kp) % kStages;
+      bar_wait(&v_full[sp], ((it + kp) / kStages) & 1);
+      const uint32_t v_last = base + L::kV + sp * L::kTile;
+      wg_fence();
+      issue_pv<T, D>(acc, pa, v_last);
+      wg_wait<0>();
+      hold(acc);
+      hold(pa);
+      bar_arrive(&v_free[sp]);
+    }
+    // the visited tiles that hold no key this warpgroup's rows see: their
+    // stages are released all the same
+    for (int kt = nc; kt < nk; ++kt) {
+      const int s = (it + kt) % kStages;
+      const uint32_t par = ((it + kt) / kStages) & 1;
+      bar_wait(&k_full[s], par);
+      bar_arrive(&k_free[s]);
+      bar_wait(&v_full[s], par);
+      bar_arrive(&v_free[s]);
+    }
+    it += nk;
+    if (nk > 0) {
+      bar_arrive(&q_free);
+      ++qu;
     }
 
     // the four threads of a row hold parts of its sum
@@ -351,12 +363,12 @@ __global__ void __launch_bounds__(kThreads, 3)
     float* ob = o + (long long)b * tq * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = q0 + wr + g + 8 * hr;
+      const int r = q0 + 16 * warp + g + 8 * hr;
       if (r >= tq) continue;
 #pragma unroll
       for (int dn = 0; dn < ND; ++dn)
         *reinterpret_cast<float2*>(ob + (long long)r * D + dn * 8 + t4 * 2) =
-            make_float2(acc[dn][2 * hr], acc[dn][2 * hr + 1]);
+            make_float2(acc[dn * 4 + 2 * hr], acc[dn * 4 + 2 * hr + 1]);
       if (t4 == 0) {
         m_out[(long long)b * tq + r] = m_r[hr];
         l_out[(long long)b * tq + r] = l_r[hr];
@@ -478,23 +490,29 @@ struct Args {
 };
 
 template <typename T, int D>
-int launch_mma(const Args& a) {
-  static_assert(kBQ <= kBK, "Q fits in a K stage");
-  const int smem = 4 * kBK * (D + 8) * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  // all of the SM's 228 KB to shared memory: three blocks of 68 KB fit
-  err = cudaFuncSetAttribute(flash_fwd_mma<T, D>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
+int launch_wgmma(const Args& a, int kind) {
+  // with no key (tk = 0) no block loads k or v, but their maps need a
+  // tensor all the same: q's
+  const bool keys = a.tk > 0;
+  CUtensorMap qm, km, vm;
+  int err = hopper::make_map(&qm, a.q, kind, D, a.tq, a.bh, kBQ);
+  if (!err)
+    err = hopper::make_map(&km, keys ? a.k : a.q, kind, D,
+                           keys ? a.tk : a.tq, a.bh, kBK);
+  if (!err)
+    err = hopper::make_map(&vm, keys ? a.v : a.q, kind, D,
+                           keys ? a.tk : a.tq, a.bh, kBK);
+  if (err) return err;
+  const int smem = FwdSmem<D>::kBytes + 1024;  // + the base's alignment
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.tq + kBQ - 1) / kBQ,
                   a.bh < kMaxGridY ? a.bh : kMaxGridY);
-  flash_fwd_mma<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.offs, a.o, a.m, a.l, a.bh, a.tq, a.tk,
-      a.causal, a.scale);
+  flash_fwd_wgmma<T, D><<<grid, kThreads5, smem, a.stream>>>(
+      qm, km, vm, a.offs, a.o, a.m, a.l, a.bh, a.tq, a.tk, a.causal,
+      a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -513,8 +531,8 @@ template <int D>
 int launch_kind(const Args& a, int kind) {
   switch (kind) {
     case 0: return launch_f32<D>(a);
-    case 1: return launch_mma<__nv_bfloat16, D>(a);
-    case 2: return launch_mma<__half, D>(a);
+    case 1: return launch_wgmma<__nv_bfloat16, D>(a, kind);
+    case 2: return launch_wgmma<__half, D>(a, kind);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -540,6 +558,18 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     case 64: return launch_kind<64>(a, kind);
     case 128: return launch_kind<128>(a, kind);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory a launch of kernel 5's wgmma kernel asks for at
+// head size d, in bytes; -1 for a head size it is not built for.
+extern "C" int flash_smem_bytes(int d) {
+  switch (d) {
+    case 16: return FwdSmem<16>::kBytes + 1024;
+    case 32: return FwdSmem<32>::kBytes + 1024;
+    case 64: return FwdSmem<64>::kBytes + 1024;
+    case 128: return FwdSmem<128>::kBytes + 1024;
+    default: return -1;
   }
 }
 

@@ -21,7 +21,10 @@ with their k/v blocks and are home after n hops (``_ring_backward``).
   a loop over k tiles per block of q rows) and dk, dv (kernel 7,
   ``_flash_bwd_dkv_kernel``, a loop over q tiles per block of keys), both
   from p = exp(s - lse) and delta = rowsum(dO * out).  All run on the tensor
-  cores for bf16 and fp16 and in f32 FMAs for f32.  One launch covers every
+  cores for bf16 and fp16 (kernels 5 and 7 on wgmma, fed by TMA and a
+  producer warp; kernel 6 on mma.sync) and in f32 FMAs for f32.  Kernels 5
+  and 7 read their 16-bit inputs through TMA tensor maps that the C side
+  makes at each launch from the tensors' addresses.  One launch covers every
   batch row of every rank: each row reads its own ``(q_off, k_off)`` pair
   from a small int32 tensor, which takes the place of the TPU's scalar
   prefetch.
@@ -149,8 +152,8 @@ def flash_fwd_block_plain(q, k, v, q_off, k_off, *, scale, causal):
 
 
 def _aligned(x):
-    """``x`` contiguous, its data 16-byte aligned (the kernel's vector
-    loads)."""
+    """``x`` contiguous, its data 16-byte aligned (the kernels' vector
+    loads and TMA tensor maps): a copy where it is not."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -517,8 +520,8 @@ def ring_flash_attention(q, k, v, *, comm=None, causal=False, scale=None,
     so torch autograd applies its chain rule, as JAX's autodiff does.
 
     ``block_q`` and ``block_k`` are the JAX package's tile sizes, accepted
-    for its API and ignored: the CUDA kernels use their own tiles of 32 or
-    64 rows, because a block's shared memory holds 227 KB, not the TPU's
+    for its API and ignored: the CUDA kernels use their own tiles of 64 or
+    128 rows, because a block's shared memory holds 227 KB, not the TPU's
     100 MB of VMEM.
     """
     comm = check_qkv(q, k, v, comm)

@@ -206,3 +206,109 @@ def test_auto_with_a_tensor_scale_raises_on_the_card(cuda):
         ring_attention(q, q, q, comm=comm, scale=scale)
     out = ring_attention(q, q, q, comm=comm, scale=scale, impl="xla")
     assert out.shape == q.shape
+
+
+def _qkv(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(shape, generator=g) * 0.4).to(dtype).to(device)
+            for _ in range(4)]
+
+
+def _bwd_rows(q, k, v, do, offs):
+    """lse and delta of the forward of one block, as the ring hands them
+    to kernels 6 and 7 (a row that sees no key takes lse = m)."""
+    o, m, l = flash.flash_fwd_block_plain(q, k, v, offs[:, 0], offs[:, 1],
+                                          scale=1.0, causal=True)
+    live = l > 0
+    lse = m + torch.log(torch.where(live, l, 1.0))
+    delta = (do.float() * o / torch.where(live, l, 1.0)).sum(-1, keepdim=True)
+    return lse, delta
+
+
+@pytest.mark.gpu
+def test_wgmma_kernels_on_two_streams_at_once(cuda):
+    """Kernels 5 and 7 launched on two streams at once give, bit for bit,
+    what each gives alone: no device state is shared between launches."""
+    bh, t, d = 8, 640, 128
+    sets = []
+    for seed in (1, 2):
+        q, k, v, do = _qkv((bh, t, d), torch.bfloat16, cuda, seed)
+        offs = torch.tensor([[t, t * (seed - 1)]] * bh, dtype=torch.int32,
+                            device=cuda)
+        sets.append((q, k, v, do, offs, *_bwd_rows(q, k, v, do, offs)))
+
+    def run(q, k, v, do, offs, lse, delta):
+        fwd = flash._flash_fwd_kernel(q, k, v, offs, scale=1.0, causal=True)
+        dkv = flash._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, offs,
+                                          scale=1.0, causal=True)
+        return (*fwd, *dkv)
+
+    alone = [run(*x) for x in sets]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in sets]
+    together = [None, None]
+    for _ in range(3):
+        for i, (x, stream) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(stream):
+                together[i] = run(*x)
+        torch.cuda.synchronize()
+        for a, b in zip(alone, together):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_wgmma_kernels_take_inputs_off_16_bytes(cuda):
+    """An input 8 bytes off a 16-byte boundary is copied into alignment
+    before its tensor map is made: the result is that of the aligned
+    input, bit for bit."""
+    bh, t, d = 3, 200, 64
+    q, k, v, do = _qkv((bh, t, d), torch.bfloat16, cuda, 3)
+    offs = torch.zeros(bh, 2, dtype=torch.int32, device=cuda)
+    lse, delta = _bwd_rows(q, k, v, do, offs)
+
+    def off16(x):
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)
+        y = buf[4:4 + x.numel()].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 == 8
+        return y
+
+    for fn, args in ((flash._flash_fwd_kernel, (q, k, v, offs)),
+                     (flash._flash_bwd_dkv_kernel,
+                      (q, k, v, do, lse, delta, offs))):
+        ref = fn(*args, scale=1.0, causal=True)
+        moved = [off16(x) if x.dtype == torch.bfloat16 else x for x in args]
+        got = fn(*moved, scale=1.0, causal=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_kernels_at_rows_narrower_than_the_swizzle(cuda, dtype):
+    """D = 16: 32-byte rows, a quarter of the 128-byte swizzle span, on the
+    32-byte swizzle; kernels 5 and 7 at ring offsets (the diagonal step and
+    the step below it) over several 128-row blocks, within ``TOL`` and
+    ``TOL_BWD``."""
+    bh, t, d = 6, 700, 16
+    q, k, v, do = _qkv((bh, t, d), dtype, cuda, 4)
+    for q_off, k_off in ((t, t), (2 * t, t)):
+        offs = torch.tensor([[q_off, k_off]] * bh, dtype=torch.int32,
+                            device=cuda)
+        got = flash._flash_fwd_kernel(q, k, v, offs, scale=1.0, causal=True)
+        ref = flash.flash_fwd_block_plain(q, k, v, offs[:, 0], offs[:, 1],
+                                          scale=1.0, causal=True)
+        errs = chk.errors(got, ref, chk.noise(q, k, v, offs[:, 0],
+                                              offs[:, 1], scale=1.0,
+                                              causal=True))
+        assert chk.within(errs, dtype), (q_off, k_off, errs)
+        lse, delta = _bwd_rows(q, k, v, do, offs)
+        dk, dv = flash._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, offs,
+                                             scale=1.0, causal=True)
+        ref = flash.flash_bwd_block_plain(q, k, v, do, lse, delta,
+                                          offs[:, 0], offs[:, 1], scale=1.0,
+                                          causal=True)
+        noise = chk.bwd_noise(q, k, v, do, lse, delta, offs[:, 0],
+                              offs[:, 1], scale=1.0, causal=True)
+        errs = chk.bwd_errors((ref[0], dk, dv), ref, noise)
+        assert chk.within_bwd(errs, dtype), (q_off, k_off, errs)
