@@ -314,18 +314,17 @@ def log_build(name, build_secs):
 
 
 # the kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu, as ptxas names them
-FLASH_KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32", "flash_bwd_dq_mma",
-                      "flash_bwd_dkv_wgmma", "flash_bwd_dq_f32",
-                      "flash_bwd_dkv_f32")
+FLASH_KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_f32",
+                      "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                      "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
 
 def log_registers(name):
     """Each kernel's registers, spills and static shared memory from
     ptxas's lines, one line per instantiation; for the wgmma kernels also
     the dynamic shared memory a launch asks for (``flash_smem_bytes`` of
-    the library)."""
+    the library, ``flash_dq_smem_bytes`` for kernel 6)."""
     lib = _build.library(name)
-    lib.flash_smem_bytes.argtypes = [ctypes.c_int]
     fn = None
     for line in _build.LOGS.get(name, "").splitlines():
         if "Compiling entry function" in line:
@@ -335,7 +334,11 @@ def log_registers(name):
                       if p in mangled)
             d = int(mangled.split("Li")[-1].split("E")[0])
             if "wgmma" in fn:
-                fn += f" (dynamic smem {lib.flash_smem_bytes(d)} bytes)"
+                smem = getattr(lib, "flash_dq_smem_bytes"
+                               if fn == "flash_bwd_dq_wgmma"
+                               else "flash_smem_bytes")
+                smem.argtypes = [ctypes.c_int]
+                fn += f" (dynamic smem {smem(d)} bytes)"
             fn += " " + ("bf16" if "bfloat16" in mangled else "fp16"
                          if "half" in mangled else "f32")
             fn += f" D={d}"
@@ -1783,6 +1786,8 @@ def main(argv=None):
         "bound_ms": a2a_t["bound_ms"], "bound_by": "bytes",
         "library_ms": a2a_t["library_ms"],
         "library": "x.transpose(0, 1).contiguous()",
+        "variant": "8 KiB chunks a block, two 16-byte loads a thread in "
+                   "flight (benchmarks/kernel_variants.py)",
         "at": f"{SPECTRAL_N}^3 complex64 x-to-y transpose, n=4",
         "payload_bytes": a2a_t["payload_bytes"],
         "tiny_call_us": a2a_t["tiny_call_us"], "path_c": c_rows,

@@ -115,13 +115,13 @@ def _mid(var, width, n):
 
 
 _LOG2 = " + ({} == tq / 2 ? 0.6931472f : 0.f)"
-# kernels 6 and 7's faults in csrc/flash_bwd.cu: the mma kernels' lines
+# kernels 6 and 7's faults in csrc/flash_bwd.cu: the wgmma kernels' lines
 # first, then the f32 kernels'
 BWD_FAULTS = {
     "dq_tile": [
-        ("const float p = ok ? expf(x - lse_r[hr]) : 0.f;",
-         "const float p = ok && !(" + _mid("kt", "kT6", "tk")
-         + ") ? expf(x - lse_r[hr]) : 0.f;"),
+        ("const float p = expf(ok ? x - lse_r[hr] : -INFINITY);",
+         "const float p = expf(ok && !(" + _mid("kt", "kT6", "tk")
+         + ") ? x - lse_r[hr] : -INFINITY);"),
         ("const float p = ok ? expf(x - lse_r[i]) : 0.f;",
          "const float p = ok && !(" + _mid("kt", "kTF", "tk")
          + ") ? expf(x - lse_r[i]) : 0.f;"),
@@ -135,8 +135,8 @@ BWD_FAULTS = {
          + ") ? expf(x - Ls[lane]) : 0.f;"),
     ],
     "delta": [
-        ("float ds = p * (dp[nt][e] - dlt_r[hr]);",
-         "float ds = p * dp[nt][e];"),
+        ("float ds = p * (dp[nt * 4 + e] - dlt_r[hr]);",
+         "float ds = p * dp[nt * 4 + e];"),
         ("float ds = p * (dpT[nt * 4 + e] - ec[qi]);",
          "float ds = p * dpT[nt * 4 + e];"),
         ("float ds = p * (dpv - dlt_r[i]);", "float ds = p * dpv;"),

@@ -22,11 +22,15 @@
 //
 // Design.  A byte-exact strided copy, so any element type (complex64, bf16,
 // bool, int8) needs no special case.  blockIdx.y walks the pairs (striding
-// past 65535), blockIdx.x picks a 64 KiB chunk of the row.  A thread copies
-// 16 bytes at a time, four loads in flight before their stores, when source
+// past 65535), blockIdx.x picks an 8 KiB chunk of the row.  A thread copies
+// 16 bytes at a time, two loads in flight before their stores, when source
 // and target are 16-byte aligned; else 4 bytes when both are 4-byte aligned;
 // the tail and anything misaligned a byte at a time.  Every output byte is
-// written, so the wrapper allocates the output uninitialised.
+// written, so the wrapper allocates the output uninitialised.  Small chunks
+// make many short blocks, so that the launch's last wave of blocks is a
+// small share of it: of the designs timed (benchmarks/kernel_variants.py:
+// chunks of 4 to 64 KiB, 128-thread blocks, evict-first cache hints, bulk
+// asynchronous copies through shared memory), the fastest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,8 +38,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kChunk = 64 * 1024;  // bytes of a row per block
-constexpr int kUnroll = 4;
+constexpr long long kChunk = 8 * 1024;  // bytes of a row per block
+constexpr int kUnroll = 2;
 constexpr int kMaxGridY = 65535;
 
 __device__ __forceinline__ void copy_chunk(const unsigned char* __restrict__ s,

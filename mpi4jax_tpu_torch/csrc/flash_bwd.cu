@@ -26,18 +26,38 @@
 // dQ), 0.417 ms at 989 TFLOP/s; kernel 7 four (S, dP, dV, dK), 0.556 ms.
 // The bytes (q, k, v, dO read, f32 outputs written) take about 0.16 ms.
 //
-// Design of kernel 6 (bf16, fp16; flash_bwd_dq_mma): 128 threads, 4 warps
-// of 16 rows; an int32 (q_off, k_off) pair per batch row; tiles streamed
-// through two cp.async stages of dynamic shared memory with rows padded by
-// 8 elements; ldmatrix fragments and mma.sync m16n8k16 with f32
-// accumulators; the accumulator of one product is, register for register,
-// the A fragment of the next.  A block takes 64 query rows of one batch row
-// and keeps Q and dO in shared memory; 64-key tiles of K and V stream
-// through.  Per tile a warp computes S = Q K^T and dP = dO V^T (K and V as B
-// fragments), turns them into dS in registers and adds dS K (K's fragments
-// through ldmatrix.trans) to its 16 x D dq accumulator.  The loop stops at
-// the last tile whose first key a row of the block sees, and the blocks
-// with the most tiles start first.  Later work: the design of kernel 7.
+// Design of kernel 6 (bf16, fp16; flash_bwd_dq_wgmma): only wgmma reaches
+// the tensor cores' full rate on Hopper.  A block of 384 threads takes 128
+// query rows of one batch row: warpgroup 0 is the producer, one thread of
+// which issues TMA loads (setmaxnreg 24), and warpgroups 1 and 2 are
+// consumers of 64 rows each (setmaxnreg 240), each holding its 64 x D dQ in
+// f32 registers and its rows' lse and delta.  Q and dO come once per batch
+// row; 64-key tiles of K and V come through three stages of shared memory
+// on full and free mbarriers (TMA's swizzled boxes, csrc/hopper.cuh; 160 KB
+// at D = 128).  Per tile a consumer computes S = Q K^T and dP = dO V^T with
+// both operands in shared memory (wgmma m64n64k16), turns them into dS in
+// registers and, rounded to the input type, dS is register for register the
+// A operand of dQ += dS K, whose B operand K is read MN-major from the tile
+// that served S K-major.  Tile kt's S and dP are issued with tile kt - 1's
+// dQ product behind them, and tile kt's dS is computed while that product
+// runs: a stage is held across two steps, hence the third stage.  Every
+// mbarrier wait precedes the fence of the products that read its tile
+// (ptxas serializes all of a kernel's wgmma when a wait falls between two of
+// them).  The mask picks expf's argument, not its result.  The block visits
+// k tiles up to the last one whose first key one of its rows within Tq sees
+// (tiles_to_visit, csrc/flash_tiles.cuh); a warpgroup passes by the visited
+// tiles that hold no key its rows see, releasing their stages all the same;
+// a tile that every row of a warp sees in full skips the mask; and the
+// blocks with the most tiles start first.  dQ is summed only in the block's
+// loop and written once.  What holds it near 0.39 of its bound (PERF.md):
+// the overlap is worth a few percent (tile kt's dS computed after tile
+// kt - 1's dQ is in measured 3% slower, benchmarks/kernel_variants.py), so
+// each consumer's chain of products, waits and 64 expf a thread per tile
+// sets the pace, with the other consumer's chain as the main overlap; S
+// and dP read both operands from shared memory at 64 columns, about the
+// shared memory's rate (reckoned, as for kernel 7).  Two stages, or
+// 128-key tiles in two stages, leave a stage's load exposed and measured
+// slower.
 //
 // Design of kernel 7 (bf16, fp16; flash_bwd_dkv_wgmma): only wgmma reaches
 // the tensor cores' full rate on Hopper.  A block of 384 threads takes 128
@@ -78,11 +98,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // kernel 6 and the f32 kernels: 4 warps
-constexpr int kB = 64;         // query rows of a block of kernel 6
-constexpr int kT6 = 64;        // keys per tile of kernel 6
-constexpr int kThreads7 = 384;  // kernel 7: a producer and two consumers
+constexpr int kThreads = 128;  // the f32 kernels: 4 warps
+constexpr int kThreadsW = 384;  // kernels 6 and 7: a producer, two consumers
 constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kB6 = 128;       // query rows of a block of kernel 6
+constexpr int kT6 = 64;        // keys per tile of kernel 6
+constexpr int kStages6 = 3;    // stages of K and V tiles
 constexpr int kB7 = 128;       // keys of a block of kernel 7
 constexpr int kT7 = 64;        // queries per tile of kernel 7
 constexpr int kStages7 = 2;    // stages of Q, dO, lse and delta tiles
@@ -90,268 +111,283 @@ constexpr int kBF = 16;        // rows of a block (f32)
 constexpr int kTF = 32;        // tile width (f32)
 constexpr int kMaxGridY = 65535;
 
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // two f32 values rounded to the input type, the first in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+// Dynamic shared memory of kernel 6, in bytes from a 1024-byte aligned
+// base: Q and dO of the block, then the stages of K, then those of V.
+template <int D>
+struct DqSmem {
+  static constexpr int kRows = kB6 * D * 2;  // Q or dO
+  static constexpr int kTile = kT6 * D * 2;  // a tile of K or V
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kRows;
+  static constexpr int kK = 2 * kRows;
+  static constexpr int kV = kK + kStages6 * kTile;
+  static constexpr int kBytes = kV + kStages6 * kTile;
 };
 
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-// the A fragment of one 16-wide k step from two accumulator tiles (n tiles
-// 2 kk and 2 kk + 1), rounded to the input type
-template <typename T>
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                     const float (&c1)[4]) {
-  a[0] = Mma<T>::pack(c0[0], c0[1]);
-  a[1] = Mma<T>::pack(c0[2], c0[3]);
-  a[2] = Mma<T>::pack(c1[0], c1[1]);
-  a[3] = Mma<T>::pack(c1[2], c1[3]);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared without a register round trip; zeros when
-// !valid (src points at a valid row all the same)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// four 8x8 b16 matrices from shared memory, lane l naming row l % 8 of
-// matrix l / 8; .trans hands each thread a column pair instead of a row pair
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// rows [r0, r0 + rows) of a (n, D) tensor into a shared tile of row stride
-// D + 8, by 16-byte cp.async chunks; rows past n are zero
+// S = Q K^T and dP = dO V^T of one tile for a consumer's 64 rows (rows
+// row0 .. row0 + 63 of the block's Q and dO tiles), against the kT6 keys of
+// the K and V tiles: issued and committed as one group.
 template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0,
-                                          int rows, int n, int tid) {
-  constexpr int CH = D / 8;
-  for (int c = tid; c < rows * CH; c += kThreads) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    const bool in = r0 + r < n;
-    cp_async16(dst + r * (D + 8) + cc,
-               src + (long long)(in ? r0 + r : 0) * D + cc, in);
+__device__ __forceinline__ void issue_s_dp(float (&s)[kT6 / 2],
+                                           float (&dp)[kT6 / 2],
+                                           uint32_t q_tile, uint32_t do_tile,
+                                           int row0, uint32_t k_tile,
+                                           uint32_t v_tile) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < kT6 / 2; ++i) s[i] = dp[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    Wgmma<T, kT6>::ss(s, desc_k<D>(q_tile, kB6, row0, ks),
+                      desc_k<D>(k_tile, kT6, 0, ks), ks > 0);
+    Wgmma<T, kT6>::ss(dp, desc_k<D>(do_tile, kB6, row0, ks),
+                      desc_k<D>(v_tile, kT6, 0, ks), ks > 0);
+  }
+  wg_commit();
+}
+
+// dQ += dS K of one tile, dS's fragments in registers and K read MN-major
+// from the tile that served S: issued and committed as one group.
+template <typename T, int D>
+__device__ __forceinline__ void issue_dq(float (&acc)[D / 2],
+                                         const uint32_t (&sa)[kT6 / 16][4],
+                                         uint32_t k_tile) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < kT6 / 16; ++kk)
+    Wgmma<T, D>::rs(acc, sa[kk], desc_mn<D>(k_tile, kT6, kk));
+  wg_commit();
+}
+
+// dS of scored tile kt in place of S: p = exp(s - lse), 0 where masked,
+// and ds = p (dp - delta), times scale.  s holds the scores of a thread's
+// rows g and g + 8 of its warp (accumulator e of n-tile nt at row
+// g + 8 (e >> 1), key nt * 8 + 2 t4 + (e & 1) of the tile); a row past Tq
+// has zero q and dO and lse = delta = 0, so its ds is 0.  A tile that every
+// row of the warp (first row w0) sees in full needs no mask.  The mask
+// picks expf's argument, not its result: a select around each expf
+// compiles to a branch per score.
+__device__ __forceinline__ void tile_ds(float (&s)[kT6 / 2],
+                                        const float (&dp)[kT6 / 2], int kt,
+                                        int tk, int w0, int q_off, int k_off,
+                                        const int (&row_pos)[2],
+                                        const float (&lse_r)[2],
+                                        const float (&dlt_r)[2], int t4,
+                                        int causal, float scale) {
+  const int k0 = kt * kT6;
+  const bool whole =
+      k0 + kT6 <= tk && (!causal || k_off + k0 + kT6 - 1 <= q_off + w0);
+#pragma unroll
+  for (int nt = 0; nt < kT6 / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      float x = s[nt * 4 + e];
+      if (scale != 1.f) x *= scale;
+      bool ok = true;
+      if (!whole) {
+        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
+        ok = col < tk && (!causal || k_off + col <= row_pos[hr]);
+      }
+      const float p = expf(ok ? x - lse_r[hr] : -INFINITY);
+      float ds = p * (dp[nt * 4 + e] - dlt_r[hr]);
+      if (scale != 1.f) ds *= scale;
+      s[nt * 4 + e] = ds;
+    }
   }
 }
 
-// Lane roles of the ldmatrix groups: A fragments (two row halves, two k
-// halves), B fragments from an (n, k) tile (two n tiles, two k halves) and,
-// .trans, from a (k, n) tile (two k halves, two n tiles).
-struct Lanes {
-  int a_row, a_col, b_row, b_col, t_row, t_col;
-  __device__ explicit Lanes(int lane)
-      : a_row((lane & 7) + ((lane >> 3) & 1) * 8), a_col((lane >> 4) * 8),
-        b_row((lane >> 4) * 8 + (lane & 7)), b_col(((lane >> 3) & 1) * 8),
-        t_row(((lane >> 3) & 1) * 8 + (lane & 7)), t_col((lane >> 4) * 8) {}
-};
+// dS rounded to the input type: the A fragments of dQ += dS K (those of
+// n-tiles 2j and 2j + 1 for reduction step j).
+template <typename T>
+__device__ __forceinline__ void pack_ds(uint32_t (&sa)[kT6 / 16][4],
+                                        const float (&s)[kT6 / 2]) {
+#pragma unroll
+  for (int j = 0; j < kT6 / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      sa[j][r] = hopper::pack2<T>(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
+}
 
-// Kernel 6, bf16 / fp16 inputs: tensor cores, f32 accumulation.
+// Kernel 6, bf16 / fp16 inputs: wgmma, f32 accumulation.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ offs, float* __restrict__ dq,
-                     int bh, int tq, int tk, int causal, float scale) {
-  constexpr int SQ = D + 8;    // row stride of every tile (elements)
-  constexpr int KD = D / 16;   // k steps of Q K^T and dO V^T
-  constexpr int NS = kT6 / 8;  // n tiles of S
-  constexpr int ND = D / 8;    // n tiles of dQ
-  constexpr int TILE = kT6 * SQ;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ds = Qs + kB * SQ;  // dO
-  T* Ks = Ds + kB * SQ;  // two stages of K, then two of V
-  T* Vs = Ks + 2 * TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const Lanes ln(lane);
+__global__ void __launch_bounds__(kThreadsW, 1)
+    flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap q_map,
+                       __grid_constant__ const CUtensorMap k_map,
+                       __grid_constant__ const CUtensorMap v_map,
+                       __grid_constant__ const CUtensorMap do_map,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ offs, float* __restrict__ dq,
+                       int bh, int tq, int tk, int causal, float scale) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  constexpr int ND = D / 8;  // n tiles of dQ
+  constexpr int QBOX = kB6 * Span<D>::kRowBytes;  // a box of Q or dO
+  constexpr int KBOX = kT6 * Span<D>::kRowBytes;  // a box of K or V
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t qd_full, qd_free, full[kStages6], free_[kStages6];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const int wg = threadIdx.x / 128;
   // the blocks with the most causal work first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
-  const int wr = warp * 16;  // this warp's first row in the block
+  const int blk_q0 = (gridDim.x - 1 - blockIdx.x) * kB6;
+  const int rows = min(kB6, tq - blk_q0);  // the block's rows within Tq
 
+  if (threadIdx.x == 0) {
+    bar_init(&qd_full, 1);
+    bar_init(&qd_free, kConsumers);
+    for (int s = 0; s < kStages6; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&free_[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one thread keeps the stages filled
+    regs_down<24>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch(&q_map);
+    tma_prefetch(&k_map);
+    tma_prefetch(&v_map);
+    tma_prefetch(&do_map);
+    int it = 0, qu = 0;  // tiles and Q/dO loads so far
+    for (int b = blockIdx.y; b < bh; b += gridDim.y) {
+      const int nk = tiles_to_visit(tk, kT6, rows, offs[2 * b], blk_q0,
+                                    offs[2 * b + 1], causal);
+      if (nk == 0) continue;
+      bar_wait(&qd_free, (qu++ & 1) ^ 1);
+      bar_arrive_tx(&qd_full, 2 * L::kRows);
+      for (int x = 0; x < Span<D>::kBoxes; ++x) {
+        tma_load(smem + L::kQ + x * QBOX, &q_map, x * Span<D>::kCols, blk_q0,
+                 b, &qd_full);
+        tma_load(smem + L::kDo + x * QBOX, &do_map, x * Span<D>::kCols,
+                 blk_q0, b, &qd_full);
+      }
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int st = it % kStages6;
+        bar_wait(&free_[st], ((it / kStages6) & 1) ^ 1);
+        bar_arrive_tx(&full[st], 2 * L::kTile);
+        for (int x = 0; x < Span<D>::kBoxes; ++x) {
+          tma_load(smem + L::kK + st * L::kTile + x * KBOX, &k_map,
+                   x * Span<D>::kCols, kt * kT6, b, &full[st]);
+          tma_load(smem + L::kV + st * L::kTile + x * KBOX, &v_map,
+                   x * Span<D>::kCols, kt * kT6, b, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: 64 rows, 16 a warp
+  regs_up<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blk_q0 + 64 * cw;  // this warpgroup's first row
+  const int w0 = q0 + 16 * warp;    // this warp's
+  int it = 0, qu = 0;  // tiles and Q/dO loads so far
   for (int b = blockIdx.y; b < bh; b += gridDim.y) {
     const int q_off = offs[2 * b], k_off = offs[2 * b + 1];
     const long long qrow = (long long)b * tq;
-    const T* kb = k + (long long)b * tk * D;
-    const T* vb = v + (long long)b * tk * D;
-    const int nk = tiles_to_visit(tk, kT6, kB, q_off, q0, k_off, causal);
-
-    auto load_kv = [&](int kt) {
-      load_rows<T, D>(Ks + (kt & 1) * TILE, kb, kt * kT6, kT6, tk, tid);
-      load_rows<T, D>(Vs + (kt & 1) * TILE, vb, kt * kT6, kT6, tk, tid);
-      cp_async_commit();
-    };
-
-    __syncthreads();  // the previous batch row's tiles are consumed
-    load_rows<T, D>(Qs, q + qrow * D, q0, kB, tq, tid);
-    load_rows<T, D>(Ds, dout + qrow * D, q0, kB, tq, tid);
-    cp_async_commit();
-    if (nk > 0) load_kv(0);
-
+    const int nk = tiles_to_visit(tk, kT6, rows, q_off, blk_q0, k_off, causal);
+    // the tiles from nc on hold no key that a row of this warpgroup within
+    // Tq sees (none does when its rows start past Tq)
+    const int nkw = q0 < tq ? tiles_to_visit(tk, kT6, min(64, tq - q0), q_off,
+                                             q0, k_off, causal)
+                            : 0;
+    const int nc = min(nk, nkw);
     // rows g and g + 8 of this warp: lse, delta and global position; a row
-    // past Tq has zero q and dO and takes lse = delta = 0 (its dS is 0)
+    // past Tq takes lse = delta = 0
     float lse_r[2], dlt_r[2];
     int row_pos[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = q0 + wr + g + 8 * hr;
+      const int r = w0 + g + 8 * hr;
       lse_r[hr] = r < tq ? lse[qrow + r] : 0.f;
       dlt_r[hr] = r < tq ? delta[qrow + r] : 0.f;
       row_pos[hr] = q_off + r;
     }
-    float acc[ND][4];
+    float acc[ND * 4];
 #pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+    for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
+    if (nk > 0) bar_wait(&qd_full, qu & 1);
+    const uint32_t qs = base + L::kQ, dos = base + L::kDo;
+    auto stage = [&](int kt) { return (it + kt) % kStages6; };
+    auto parity = [&](int kt) {
+      return (uint32_t)(((it + kt) / kStages6) & 1);
+    };
 
-    for (int kt = 0; kt < nk; ++kt) {
-      const int k0 = kt * kT6;
-      // tile kt + 1 in flight while tile kt is consumed
-      if (kt + 1 < nk) {
-        load_kv(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* kc = Ks + (kt & 1) * TILE;
-      const T* vc = Vs + (kt & 1) * TILE;
-
-      // S = Q K^T and dP = dO V^T for this warp's 16 rows, the tile's keys
-      float s[NS][4], dp[NS][4];
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KD; ++ks) {
-        uint32_t qa[4], da[4];
-        ldmatrix_x4(qa, Qs + (wr + ln.a_row) * SQ + ks * 16 + ln.a_col);
-        ldmatrix_x4(da, Ds + (wr + ln.a_row) * SQ + ks * 16 + ln.a_col);
-#pragma unroll
-        for (int nt = 0; nt < NS; nt += 2) {
-          uint32_t bk[4], bv[4];
-          const int at = (nt * 8 + ln.b_row) * SQ + ks * 16 + ln.b_col;
-          ldmatrix_x4(bk, kc + at);
-          Mma<T>::run(s[nt], qa, bk[0], bk[1]);
-          Mma<T>::run(s[nt + 1], qa, bk[2], bk[3]);
-          ldmatrix_x4(bv, vc + at);
-          Mma<T>::run(dp[nt], da, bv[0], bv[1]);
-          Mma<T>::run(dp[nt + 1], da, bv[2], bv[3]);
-        }
-      }
-
-      // dS = p (dP - delta), p = exp(s - lse) and 0 where masked;
-      // accumulator e of tile nt sits at row g + 8 (e >> 1), column
-      // nt * 8 + 2 t4 + (e & 1).  A tile every row sees in full needs no
-      // mask.
-      const bool whole = k0 + kT6 <= tk &&
-                         (!causal || k_off + k0 + kT6 - 1 <= q_off + q0);
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          float x = s[nt][e];
-          if (scale != 1.f) x *= scale;
-          bool ok = true;
-          if (!whole) {
-            const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-            ok = col < tk && (!causal || k_off + col <= row_pos[hr]);
-          }
-          const float p = ok ? expf(x - lse_r[hr]) : 0.f;
-          float ds = p * (dp[nt][e] - dlt_r[hr]);
-          if (scale != 1.f) ds *= scale;
-          s[nt][e] = ds;
-        }
-      }
-
-      // dQ += dS K, dS rounded to the input type; K's fragments come
-      // transposed out of its row-major tile
-#pragma unroll
-      for (int kk = 0; kk < kT6 / 16; ++kk) {
-        uint32_t sa[4];
-        to_a<T>(sa, s[2 * kk], s[2 * kk + 1]);
-        const T* kr = kc + (kk * 16 + ln.t_row) * SQ + ln.t_col;
-#pragma unroll
-        for (int dn = 0; dn < ND; dn += 2) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, kr + dn * 8);
-          Mma<T>::run(acc[dn], sa, bk[0], bk[1]);
-          Mma<T>::run(acc[dn + 1], sa, bk[2], bk[3]);
-        }
-      }
-      __syncthreads();  // this stage is consumed before tile kt + 2 lands
+    // Tile kt's S and dP are issued with, behind them, tile kt - 1's
+    // dQ += dS K, and tile kt's dS is computed while that product is on the
+    // tensor cores; tile kt - 1's stage is released once it is in.  The
+    // warpgroup computes tiles 0 .. nc - 1 and passes by the rest.
+    float s[kT6 / 2], dp[kT6 / 2];
+    uint32_t sa[kT6 / 16][4];  // dS of the tile before, the A of its dQ
+    if (nc > 0) {
+      const int st = stage(0);
+      bar_wait(&full[st], parity(0));
+      issue_s_dp<T, D>(s, dp, qs, dos, 64 * cw, base + L::kK + st * L::kTile,
+                       base + L::kV + st * L::kTile);
+      wg_wait<0>();
+      hold(s);
+      hold(dp);
+      tile_ds(s, dp, 0, tk, w0, q_off, k_off, row_pos, lse_r, dlt_r, t4,
+              causal, scale);
+      pack_ds<T>(sa, s);
     }
-    cp_async_wait<0>();  // Q and dO landed even where no tile ran
+    for (int kt = 1; kt < nc; ++kt) {
+      const int st = stage(kt), sp = stage(kt - 1);
+      // the wait before the products: a wait between two products would
+      // have ptxas serialize every product of the kernel
+      bar_wait(&full[st], parity(kt));
+      issue_s_dp<T, D>(s, dp, qs, dos, 64 * cw, base + L::kK + st * L::kTile,
+                       base + L::kV + st * L::kTile);
+      issue_dq<T, D>(acc, sa, base + L::kK + sp * L::kTile);
+      wg_wait<1>();  // S and dP are in; dQ may still run
+      hold(s);
+      hold(dp);
+      tile_ds(s, dp, kt, tk, w0, q_off, k_off, row_pos, lse_r, dlt_r, t4,
+              causal, scale);
+      wg_wait<0>();  // dQ of tile kt - 1 is in
+      hold(acc);
+      hold(sa);
+      bar_arrive(&free_[sp]);
+      pack_ds<T>(sa, s);
+    }
+    if (nc > 0) {
+      const int sp = stage(nc - 1);
+      wg_fence();
+      issue_dq<T, D>(acc, sa, base + L::kK + sp * L::kTile);
+      wg_wait<0>();
+      hold(acc);
+      hold(sa);
+      bar_arrive(&free_[sp]);
+    }
+    // the visited tiles that hold no key this warpgroup's rows see: their
+    // stages are released all the same
+    for (int kt = nc; kt < nk; ++kt) {
+      bar_wait(&full[stage(kt)], parity(kt));
+      bar_arrive(&free_[stage(kt)]);
+    }
+    it += nk;
+    if (nk > 0) {
+      bar_arrive(&qd_free);
+      ++qu;
+    }
 
     float* out = dq + qrow * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = q0 + wr + g + 8 * hr;
+      const int r = w0 + g + 8 * hr;
       if (r >= tq) continue;
 #pragma unroll
       for (int dn = 0; dn < ND; ++dn)
         *reinterpret_cast<float2*>(out + (long long)r * D + dn * 8 + t4 * 2) =
-            make_float2(acc[dn][2 * hr], acc[dn][2 * hr + 1]);
+            make_float2(acc[dn * 4 + 2 * hr], acc[dn * 4 + 2 * hr + 1]);
     }
   }
 }
@@ -373,7 +409,7 @@ struct DkvSmem {
 
 // Kernel 7, bf16 / fp16 inputs: wgmma, f32 accumulation.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads7, 1)
+__global__ void __launch_bounds__(kThreadsW, 1)
     flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap q_map,
                         __grid_constant__ const CUtensorMap k_map,
                         __grid_constant__ const CUtensorMap v_map,
@@ -827,15 +863,20 @@ dim3 grid_of(int rows, int per_block, int bh) {
 }
 
 template <typename T, int D>
-int launch_dq_mma(const Args& a) {
-  const int smem = (2 * kB + 4 * kT6) * (D + 8) * (int)sizeof(T);
-  int err = allow_smem(flash_bwd_dq_mma<T, D>, smem);
+int launch_dq_wgmma(const Args& a) {
+  CUtensorMap qm, km, vm, dm;
+  int err = hopper::make_map(&qm, a.q, a.kind, D, a.tq, a.bh, kB6);
+  if (!err) err = hopper::make_map(&dm, a.dout, a.kind, D, a.tq, a.bh, kB6);
+  if (!err) err = hopper::make_map(&km, a.k, a.kind, D, a.tk, a.bh, kT6);
+  if (!err) err = hopper::make_map(&vm, a.v, a.kind, D, a.tk, a.bh, kT6);
   if (err) return err;
-  flash_bwd_dq_mma<T, D><<<grid_of(a.tq, kB, a.bh), kThreads, smem,
-                           a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.offs, a.out1, a.bh, a.tq, a.tk, a.causal, a.scale);
+  const int smem = DqSmem<D>::kBytes + 1024;  // + the base's alignment
+  err = allow_smem(flash_bwd_dq_wgmma<T, D>, smem);
+  if (err) return err;
+  flash_bwd_dq_wgmma<T, D><<<grid_of(a.tq, kB6, a.bh), kThreadsW, smem,
+                             a.stream>>>(
+      qm, km, vm, dm, a.lse, a.delta, a.offs, a.out1, a.bh, a.tq, a.tk,
+      a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -850,7 +891,7 @@ int launch_dkv_wgmma(const Args& a) {
   const int smem = DkvSmem<D>::kBytes + 1024;  // + the base's alignment
   err = allow_smem(flash_bwd_dkv_wgmma<T, D>, smem);
   if (err) return err;
-  flash_bwd_dkv_wgmma<T, D><<<grid_of(a.tk, kB7, a.bh), kThreads7, smem,
+  flash_bwd_dkv_wgmma<T, D><<<grid_of(a.tk, kB7, a.bh), kThreadsW, smem,
                               a.stream>>>(
       qm, km, vm, dm, a.lse, a.delta, a.offs, a.out1, a.out2, a.bh, a.tq,
       a.tk, a.causal, a.scale);
@@ -891,10 +932,10 @@ int launch_kind(const Args& a, int kind, bool dkv) {
     case 0: return dkv ? launch_dkv_f32<D>(a) : launch_dq_f32<D>(a);
     case 1:
       return dkv ? launch_dkv_wgmma<__nv_bfloat16, D>(a)
-                 : launch_dq_mma<__nv_bfloat16, D>(a);
+                 : launch_dq_wgmma<__nv_bfloat16, D>(a);
     case 2:
       return dkv ? launch_dkv_wgmma<__half, D>(a)
-                 : launch_dq_mma<__half, D>(a);
+                 : launch_dq_wgmma<__half, D>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -953,6 +994,17 @@ extern "C" int flash_smem_bytes(int d) {
     case 32: return DkvSmem<32>::kBytes + 1024;
     case 64: return DkvSmem<64>::kBytes + 1024;
     case 128: return DkvSmem<128>::kBytes + 1024;
+    default: return -1;
+  }
+}
+
+// The same for kernel 6's wgmma kernel.
+extern "C" int flash_dq_smem_bytes(int d) {
+  switch (d) {
+    case 16: return DqSmem<16>::kBytes + 1024;
+    case 32: return DqSmem<32>::kBytes + 1024;
+    case 64: return DqSmem<64>::kBytes + 1024;
+    case 128: return DqSmem<128>::kBytes + 1024;
     default: return -1;
   }
 }

@@ -1,7 +1,7 @@
 // hopper.cuh: the Hopper pieces of the port's flash kernels (sm_90a):
 // mbarriers, TMA tile loads, wgmma descriptors and products, register
 // reallocation, and the host side's tensor maps.  Included by
-// csrc/flash_fwd.cu (kernel 5) and csrc/flash_bwd.cu (kernel 7).
+// csrc/flash_fwd.cu (kernel 5) and csrc/flash_bwd.cu (kernels 6 and 7).
 //
 // Tiles in shared memory are what a TMA load with a 32, 64 or 128-byte
 // swizzle leaves there: a (rows, D) tile of a 16-bit type is D / C boxes of

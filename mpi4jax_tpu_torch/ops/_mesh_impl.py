@@ -9,7 +9,8 @@ the others.
 allreduce       SUM: ``_collectives.allreduce_sum`` (hop and fused-ring
                 kernels); MAX/MIN: ``amax``/``amin`` over the rank
                 dimension, as the JAX package takes ``lax.pmax``/``pmin``
-                outside any Pallas kernel; logical ops on a 0/1 view;
+                outside any Pallas kernel, with no gradient as they have
+                none; logical ops on a 0/1 view;
                 PROD, bitwise and custom ops: all-gather then a local fold
 allgather       ``_collectives.all_gather`` (hops)
 alltoall        ``_collectives.alltoall`` (the alltoall kernel)
@@ -51,6 +52,23 @@ def _over_ranks(x, comm, reduce):
     return _collectives._from_front(out, comm, x.shape).contiguous()
 
 
+class _Extremum(torch.autograd.Function):
+    """MAX or MIN over the ranks.  Its backward raises, as ``jax.grad``
+    does through ``lax.pmax`` and ``lax.pmin``: only SUM is
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, comm, op):
+        ctx.name = op.name
+        return _over_ranks(x, comm, op.reduce)  # amax / amin over dim 0
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            f"allreduce with op={ctx.name} has no gradient: only SUM is "
+            f"differentiable")
+
+
 def _gathered(x, comm):
     """Every group's blocks, stacked first: ``(n, *lead, *local)``."""
     lead = len(comm.layout)
@@ -61,10 +79,8 @@ def allreduce(x, op: ReduceOp, comm):
     op.check_dtype(x.dtype)
     if op.kind == "sum":
         return _collectives.allreduce_sum(x, comm)
-    if op.kind == "max":
-        return _over_ranks(x, comm, lambda s: torch.amax(s, dim=0))
-    if op.kind == "min":
-        return _over_ranks(x, comm, lambda s: torch.amin(s, dim=0))
+    if op.kind in ("max", "min"):
+        return _Extremum.apply(x, comm, op)
     if op.custom:
         # user-defined: always the generic gather+reduce path
         return op.reduce(_gathered(x, comm)).to(x.dtype)

@@ -21,13 +21,12 @@ with their k/v blocks and are home after n hops (``_ring_backward``).
   a loop over k tiles per block of q rows) and dk, dv (kernel 7,
   ``_flash_bwd_dkv_kernel``, a loop over q tiles per block of keys), both
   from p = exp(s - lse) and delta = rowsum(dO * out).  All run on the tensor
-  cores for bf16 and fp16 (kernels 5 and 7 on wgmma, fed by TMA and a
-  producer warp; kernel 6 on mma.sync) and in f32 FMAs for f32.  Kernels 5
-  and 7 read their 16-bit inputs through TMA tensor maps that the C side
-  makes at each launch from the tensors' addresses.  One launch covers every
-  batch row of every rank: each row reads its own ``(q_off, k_off)`` pair
-  from a small int32 tensor, which takes the place of the TPU's scalar
-  prefetch.
+  cores for bf16 and fp16 (on wgmma, fed by TMA and a producer warp) and in
+  f32 FMAs for f32.  They read their 16-bit inputs through TMA tensor maps
+  that the C side makes at each launch from the tensors' addresses.  One
+  launch covers every batch row of every rank: each row reads its own
+  ``(q_off, k_off)`` pair from a small int32 tensor, which takes the place
+  of the TPU's scalar prefetch.
 - ``flash_fwd_block`` and ``flash_bwd_block`` take the kernels on a CUDA
   tensor and the plain versions on a CPU tensor
   (``_collectives.use_plain()`` forces the plain versions on the card: the

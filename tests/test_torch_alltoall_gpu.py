@@ -88,6 +88,39 @@ def test_alltoall_kernel_on_64_ranks(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rest,dtype", [
+    ((40000,), torch.float32),  # the bulk path, a short last piece
+    ((8192,), torch.float32),   # the bulk path, one 32 KiB piece a row
+    ((40001,), torch.int8),     # past a piece, no multiple of 16 bytes
+    ((8191,), torch.float32),   # just under a piece
+])
+def test_alltoall_kernel_paths_match_plain(cuda, rest, dtype):
+    """Rows on either side of the bulk path's conditions (16-byte multiples
+    of at least one 32 KiB piece), and the same rows 4 bytes off 16."""
+    comm = mt.make_mesh(4, device=cuda)
+    x = _rand((4, 4) + rest, dtype, cuda, 8)
+    _vs_plain(coll.alltoall, x, comm)
+    skip = 4 // x.element_size()  # elements in 4 bytes
+    buf = torch.empty(x.numel() + skip, dtype=dtype, device=cuda)
+    y = buf[skip:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 4
+    _vs_plain(coll.alltoall, y, comm)
+
+
+@pytest.mark.gpu
+def test_alltoall_kernel_past_65535_pairs(cuda):
+    """257 ranks: 66,049 (rank, row) pairs in one launch, past the grid's
+    65,535 rows, so blocks stride over the pairs."""
+    comm = mt.make_mesh(257, device=cuda)
+    x = _rand((257, 257, 2), torch.float32, cuda, 9)
+    before = coll.LAUNCHES["alltoall"]
+    got = _vs_plain(coll.alltoall, x, comm)
+    assert coll.LAUNCHES["alltoall"] == before + 1
+    assert torch.equal(got, x.transpose(0, 1))
+
+
+@pytest.mark.gpu
 def test_alltoall_kernel_backward(cuda):
     comm = mt.ProcessGrid((2, 4), device=cuda).axis_comm(1)
     x = _rand((2, 4, 4, 7), torch.float32, cuda, 6).requires_grad_()

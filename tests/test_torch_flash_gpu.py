@@ -227,8 +227,9 @@ def _bwd_rows(q, k, v, do, offs):
 
 @pytest.mark.gpu
 def test_wgmma_kernels_on_two_streams_at_once(cuda):
-    """Kernels 5 and 7 launched on two streams at once give, bit for bit,
-    what each gives alone: no device state is shared between launches."""
+    """Kernels 5, 6 and 7 launched on two streams at once give, bit for
+    bit, what each gives alone: no device state is shared between
+    launches."""
     bh, t, d = 8, 640, 128
     sets = []
     for seed in (1, 2):
@@ -239,9 +240,11 @@ def test_wgmma_kernels_on_two_streams_at_once(cuda):
 
     def run(q, k, v, do, offs, lse, delta):
         fwd = flash._flash_fwd_kernel(q, k, v, offs, scale=1.0, causal=True)
+        dq = flash._flash_bwd_dq_kernel(q, k, v, do, lse, delta, offs,
+                                        scale=1.0, causal=True)
         dkv = flash._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, offs,
                                           scale=1.0, causal=True)
-        return (*fwd, *dkv)
+        return (*fwd, dq, *dkv)
 
     alone = [run(*x) for x in sets]
     torch.cuda.synchronize()
@@ -273,13 +276,16 @@ def test_wgmma_kernels_take_inputs_off_16_bytes(cuda):
         assert y.data_ptr() % 16 == 8
         return y
 
+    bwd = (q, k, v, do, lse, delta, offs)
     for fn, args in ((flash._flash_fwd_kernel, (q, k, v, offs)),
-                     (flash._flash_bwd_dkv_kernel,
-                      (q, k, v, do, lse, delta, offs))):
+                     (flash._flash_bwd_dq_kernel, bwd),
+                     (flash._flash_bwd_dkv_kernel, bwd)):
         ref = fn(*args, scale=1.0, causal=True)
         moved = [off16(x) if x.dtype == torch.bfloat16 else x for x in args]
         got = fn(*moved, scale=1.0, causal=True)
         torch.cuda.synchronize()
+        if isinstance(ref, torch.Tensor):
+            got, ref = (got,), (ref,)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
@@ -287,8 +293,8 @@ def test_wgmma_kernels_take_inputs_off_16_bytes(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_wgmma_kernels_at_rows_narrower_than_the_swizzle(cuda, dtype):
     """D = 16: 32-byte rows, a quarter of the 128-byte swizzle span, on the
-    32-byte swizzle; kernels 5 and 7 at ring offsets (the diagonal step and
-    the step below it) over several 128-row blocks, within ``TOL`` and
+    32-byte swizzle; kernels 5, 6 and 7 at ring offsets (the diagonal step
+    and the step below it) over several 128-row blocks, within ``TOL`` and
     ``TOL_BWD``."""
     bh, t, d = 6, 700, 16
     q, k, v, do = _qkv((bh, t, d), dtype, cuda, 4)
@@ -303,6 +309,8 @@ def test_wgmma_kernels_at_rows_narrower_than_the_swizzle(cuda, dtype):
                                               causal=True))
         assert chk.within(errs, dtype), (q_off, k_off, errs)
         lse, delta = _bwd_rows(q, k, v, do, offs)
+        dq = flash._flash_bwd_dq_kernel(q, k, v, do, lse, delta, offs,
+                                        scale=1.0, causal=True)
         dk, dv = flash._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, offs,
                                              scale=1.0, causal=True)
         ref = flash.flash_bwd_block_plain(q, k, v, do, lse, delta,
@@ -310,5 +318,5 @@ def test_wgmma_kernels_at_rows_narrower_than_the_swizzle(cuda, dtype):
                                           causal=True)
         noise = chk.bwd_noise(q, k, v, do, lse, delta, offs[:, 0],
                               offs[:, 1], scale=1.0, causal=True)
-        errs = chk.bwd_errors((ref[0], dk, dv), ref, noise)
+        errs = chk.bwd_errors((dq, dk, dv), ref, noise)
         assert chk.within_bwd(errs, dtype), (q_off, k_off, errs)

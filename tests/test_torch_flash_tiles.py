@@ -1,26 +1,32 @@
-"""The tile walks of kernels 5 and 7 held to their plain versions, on the
-CPU.
+"""The tile walks of kernels 5, 6 and 7 held to their plain versions, on
+the CPU.
 
 ``csrc/flash_fwd.cu`` (kernel 5) gives a block 128 query rows, two
-warpgroups of 64, and walks 128-key tiles; ``csrc/flash_bwd.cu`` (kernel 7)
-gives a block 128 keys, two warpgroups of 64, and walks 64-query tiles.
-Which tiles a block visits is ``tiles_to_visit`` and ``first_q_tile`` of
-``csrc/flash_tiles.cuh``; a warpgroup computes only the visited tiles that
-hold a pair it sees: the walks count only rows within Tq and keys within
-Tk.  ``_fwd_walk`` and ``_dkv_walk`` below are that walk and the kernels'
-rounding points in torch, a model of the kernels for these tests and not a
-second plain version: kernel 5 takes p = exp(s - m) against
-the running maximum, rounds it to the input type before P V and rescales
-its sums tile by tile; kernel 7 rounds P^T and dS^T to the input type
-before dV += P^T dO and dK += dS^T Q and sums the tiles in order.  Each
-model is held to ``flash_fwd_block_plain`` or ``flash_bwd_block_plain``
-within ``_flash_check.TOL`` or ``TOL_BWD`` (errors over each component's
-rounding-noise scale; see ``mpi4jax_tpu_torch/ops/_flash_check.py``), at a
-ring's offsets (the diagonal step, the step below it, whose keys every row
-sees, and the one above, which no row sees), at partial overlaps and
-per-row offsets, at ragged Tq and Tk, causal and not.  The walks must
+warpgroups of 64, and walks 128-key tiles; in ``csrc/flash_bwd.cu``, kernel
+6 gives a block 128 query rows, two warpgroups of 64, and walks 64-key
+tiles, and kernel 7 gives a block 128 keys, two warpgroups of 64, and walks
+64-query tiles.  Which tiles a block visits is ``tiles_to_visit`` and
+``first_q_tile`` of ``csrc/flash_tiles.cuh``; a warpgroup computes only the
+visited tiles that hold a pair it sees: the walks count only rows within Tq
+and keys within Tk.  ``_fwd_walk``, ``_dq_walk`` and ``_dkv_walk`` below
+are that walk and the kernels' rounding points in torch, a model of the
+kernels for these tests and not a second plain version: kernel 5 takes
+p = exp(s - m) against the running maximum, rounds it to the input type
+before P V and rescales its sums tile by tile; kernel 6 rounds dS to the
+input type before dQ += dS K and sums the tiles in order; kernel 7 rounds
+P^T and dS^T to the input type before dV += P^T dO and dK += dS^T Q and
+sums the tiles in order.  Each model is held to ``flash_fwd_block_plain``
+or ``flash_bwd_block_plain`` within ``_flash_check.TOL`` or ``TOL_BWD``
+(errors over each component's rounding-noise scale; see
+``mpi4jax_tpu_torch/ops/_flash_check.py``), at a ring's offsets (the
+diagonal step, the step below it, whose keys every row sees, and the one
+above, which no row sees), at partial overlaps and per-row offsets, at
+ragged Tq and Tk, causal and not.  The walks must
 compute every pair a row sees and no tile that holds none.  The header's
-two functions are built with g++ and held to the Python ones.
+two functions are built with g++ and held to the Python ones, and the
+source substitutions of ``benchmarks/flash_tolerance.py`` (planted faults)
+and ``benchmarks/kernel_variants.py`` (designs tried) must each find their
+text.
 """
 
 import ctypes
@@ -32,13 +38,14 @@ import pytest
 import torch
 
 from mpi4jax_tpu_torch import _build
-from mpi4jax_tpu_torch.benchmarks import flash_tolerance
+from mpi4jax_tpu_torch.benchmarks import flash_tolerance, kernel_variants
 from mpi4jax_tpu_torch.ops import _flash_check as chk
 from mpi4jax_tpu_torch.ops import flash
 
 BQ5, BK5 = 128, 128  # kernel 5: rows of a block, keys of a tile
+BQ6, BK6 = 128, 64   # kernel 6: rows of a block, keys of a tile
 BK7, BQ7 = 128, 64   # kernel 7: keys of a block, queries of a tile
-WG = 64              # rows (5) or keys (7) of a consumer warpgroup
+WG = 64              # rows (5, 6) or keys (7) of a consumer warpgroup
 T = 200              # a ring's local length: ragged against both tiles
 # (name, BH, Tq, Tk, q_off per row, k_off per row)
 CASES = (
@@ -139,6 +146,41 @@ def _fwd_walk(q, k, v, q_off, k_off, *, scale, causal):
     return (o, m, l), done, idle
 
 
+def _dq_walk(q, k, v, do, lse, delta, q_off, k_off, *, scale, causal):
+    """Kernel 6's walk: dq as ``flash_bwd_block_plain`` returns it, the
+    pairs computed ``(BH, Tq, Tk)`` and the number of (warpgroup, tile)
+    steps that held no pair their rows see."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dq = torch.zeros(bh, tq, d)
+    done = torch.zeros(bh, tq, tk, dtype=torch.bool)
+    idle = 0
+    for b in range(bh):
+        qo, ko = int(q_off[b]), int(k_off[b])
+        for blk_q0 in range(0, tq, BQ6):
+            nk = tiles_to_visit(tk, BK6, min(BQ6, tq - blk_q0), qo, blk_q0,
+                                ko, causal)
+            for q0 in (blk_q0, blk_q0 + WG):
+                nkw = tiles_to_visit(tk, BK6, min(WG, tq - q0), qo, q0, ko,
+                                     causal) if q0 < tq else 0
+                rows = list(range(q0, min(q0 + WG, tq)))
+                for kt in range(min(nk, nkw)):
+                    cols = list(range(kt * BK6, min((kt + 1) * BK6, tk)))
+                    ok = _seen(qo, ko, rows, cols, causal)
+                    idle += not bool(ok.any())
+                    done[b, rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1] = True
+                    s = q[b, rows].float() @ k[b, cols].float().T
+                    if scale != 1.0:
+                        s = s * scale
+                    p = torch.where(ok, torch.exp(s - lse[b, rows]), 0.0)
+                    dp = do[b, rows].float() @ v[b, cols].float().T
+                    ds = p * (dp - delta[b, rows])
+                    if scale != 1.0:
+                        ds = ds * scale
+                    dq[b, rows] += ds.to(k.dtype).float() @ k[b, cols].float()
+    return dq, done, idle
+
+
 def _dkv_walk(q, k, v, do, lse, delta, q_off, k_off, *, scale, causal):
     """Kernel 7's walk: ``(dk, dv)`` as ``flash_bwd_block_plain`` returns
     them, the pairs computed ``(BH, Tq, Tk)`` and the number of
@@ -217,10 +259,9 @@ def test_forward_walk_matches_plain(case, causal, dtype):
     assert idle == 0
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_dkv_walk_matches_plain(case, causal, dtype):
+def _bwd_case(case, causal, dtype):
+    """The inputs of a backward case, with the lse and delta of the plain
+    forward, and its scale."""
     _, bh, tq, tk, qo, ko = case
     q, k, v, do, q_off, k_off = _inputs(bh, tq, tk, qo, ko, dtype, seed=tk)
     scale = 1.0 if causal else 0.25
@@ -229,30 +270,54 @@ def test_dkv_walk_matches_plain(case, causal, dtype):
     live = l > 0
     lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 0.0)
     delta = (do.float() * o / torch.where(live, l, 1.0)).sum(-1, keepdim=True)
-    (dk, dv), done, idle = _dkv_walk(q, k, v, do, lse, delta, q_off, k_off,
-                                     scale=scale, causal=causal)
-    ref = flash.flash_bwd_block_plain(q, k, v, do, lse, delta, q_off, k_off,
-                                      scale=scale, causal=causal)
-    noise = chk.bwd_noise(q, k, v, do, lse, delta, q_off, k_off, scale=scale,
-                          causal=causal)
-    errs = chk.bwd_errors((ref[0], dk, dv), ref, noise)
+    return (q, k, v, do, lse, delta, q_off, k_off), scale
+
+
+def _check_bwd_walk(args, scale, causal, dtype, got, done, idle):
+    q, k, _, _, _, _, q_off, k_off = args
+    ref = flash.flash_bwd_block_plain(*args, scale=scale, causal=causal)
+    noise = chk.bwd_noise(*args, scale=scale, causal=causal)
+    errs = chk.bwd_errors(tuple(r if g is None else g
+                                for g, r in zip(got, ref)), ref, noise)
     assert chk.within_bwd(errs, dtype), errs
-    assert bool(done[_visible(q_off, k_off, tq, tk, causal)].all())
+    assert bool(done[_visible(q_off, k_off, q.shape[1], k.shape[1],
+                              causal)].all())
     assert idle == 0
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_dq_walk_matches_plain(case, causal, dtype):
+    args, scale = _bwd_case(case, causal, dtype)
+    dq, done, idle = _dq_walk(*args, scale=scale, causal=causal)
+    _check_bwd_walk(args, scale, causal, dtype, (dq, None, None), done, idle)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_dkv_walk_matches_plain(case, causal, dtype):
+    args, scale = _bwd_case(case, causal, dtype)
+    (dk, dv), done, idle = _dkv_walk(*args, scale=scale, causal=causal)
+    _check_bwd_walk(args, scale, causal, dtype, (None, dk, dv), done, idle)
+
+
 def test_heaviest_blocks_start_first():
-    """Kernel 5's block x takes rows from the end (``gridDim.x - 1 - x``),
-    so at the diagonal its first blocks visit the most tiles; kernel 7's
-    block x takes keys from the start, so its first blocks see the most
-    query tiles."""
+    """Kernels 5 and 6's block x takes rows from the end
+    (``gridDim.x - 1 - x``), so at the diagonal its first blocks visit the
+    most tiles; kernel 7's block x takes keys from the start, so its first
+    blocks see the most query tiles."""
     tq = tk = 1000
     nx = (tq + BQ5 - 1) // BQ5
     fwd = [tiles_to_visit(tk, BK5, BQ5, 0, (nx - 1 - x) * BQ5, 0, 1)
            for x in range(nx)]
+    nx6 = (tq + BQ6 - 1) // BQ6
+    dq = [tiles_to_visit(tk, BK6, BQ6, 0, (nx6 - 1 - x) * BQ6, 0, 1)
+          for x in range(nx6)]
     bwd = [(tq + BQ7 - 1) // BQ7 - first_q_tile(tq, BQ7, 0, x * BK7, 0, 1)
            for x in range((tk + BK7 - 1) // BK7)]
-    for tiles in (fwd, bwd):
+    for tiles in (fwd, dq, bwd):
         assert tiles == sorted(tiles, reverse=True) and tiles[0] > tiles[-1]
 
 
@@ -314,4 +379,13 @@ def test_planted_faults_find_their_lines(name):
     fault it names."""
     for fault in flash_tolerance.SOURCES[name]:
         src = flash_tolerance.planted_source(fault, name)
+        assert src != (_build.CSRC / f"{name}.cu").read_text()
+
+
+@pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_find_their_lines(name):
+    """Every variant of ``benchmarks/kernel_variants.py`` finds its text
+    exactly once in the source it changes."""
+    for variant in kernel_variants.VARIANTS[name]:
+        src = kernel_variants.variant_source(name, variant)
         assert src != (_build.CSRC / f"{name}.cu").read_text()

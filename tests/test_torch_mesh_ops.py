@@ -263,6 +263,47 @@ def test_gradient_of_the_fused_ring_is_the_fused_ring():
     assert x.grad[0].numpy().tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("front", ["allreduce", "reduce"])
+@pytest.mark.parametrize("name", ["MAX", "MIN"])
+def test_max_min_have_no_gradient_as_in_jax(front, name):
+    """Only SUM is differentiable: ``jax.grad`` through ``lax.pmax`` and
+    ``lax.pmin`` raises, and so does the port's backward.  Its forward
+    values stay ``amax``/``amin`` over the ranks, bit for bit, with or
+    without a gradient recorded."""
+    n = GRAD_N
+    x = np.random.default_rng(11).standard_normal((n, 4, 3)).astype(
+        np.float32)
+    jop, top = getattr(m4j, name), getattr(mt, name)
+
+    def jfn(a):
+        if front == "allreduce":
+            return m4j.allreduce(a, op=jop)
+        return m4j.reduce(a, op=jop, root=0)
+
+    def tfn(a, comm):
+        if front == "allreduce":
+            return mt.allreduce(a, op=top, comm=comm)
+        return mt.reduce(a, op=top, root=0, comm=comm)
+
+    loss = lambda a: jnp.sum(m4j.spmd(jfn, mesh=m4j.make_mesh(n))(a))  # noqa: E731
+    with pytest.raises(NotImplementedError, match=name.lower()):
+        jax.grad(loss)(x)
+
+    comm = mt.make_mesh(n, device="cpu")
+    leaf = torch.from_numpy(x).requires_grad_()
+    out = tfn(leaf, comm)
+    with pytest.raises(NotImplementedError, match=f"op={name}.*only SUM"):
+        out.sum().backward()
+    fold = torch.amax if name == "MAX" else torch.amin
+    want = fold(torch.from_numpy(x), dim=0, keepdim=True).expand(x.shape)
+    if front == "reduce":
+        want = torch.cat([want[:1], torch.from_numpy(x[1:])])
+    with torch.no_grad():
+        plain = tfn(torch.from_numpy(x), comm)
+    for got in (out.detach(), plain):
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
 # -- arguments ----------------------------------------------------------------
 
 def test_token_and_compression_raise():
