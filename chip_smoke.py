@@ -9,10 +9,12 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 1. the card's name and power limit; build the seven sources of
    ``mpi4jax_tpu_torch/csrc/`` (eight kernels) with nvcc, one process each,
    and the native transport (``native/tpucomm.cc``, g++), all started
-   together, and print the fused step's build time and ptxas lines;
+   together, and print the fused step's build time and ptxas lines, and
+   for each instantiation of it its registers, spills and the dynamic
+   shared memory of the default tile;
 2. the kernel against its plain PyTorch version on the card at 1800x3600:
    the Euler step from a check state (the initial jet with seeded
-   grid-scale noise), and fuse=1 and fuse=3 from that state after two plain
+   grid-scale noise), and fuse=1, 2 and 3 from that state after two plain
    steps, at the solver's parameters and at 1000x its viscosity; each
    field within ``_sw_check.CHECK_TOL`` of its scale (see
    ``mpi4jax_tpu_torch/models/_sw_check.py``);
@@ -24,8 +26,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    just after; h must stay finite, mass must hold to 1e-5, and the result
    must stay near the plain path's, which is timed too (as the cost of the
    test oracle, not as a yardstick);
-5. the kernel's time per launch (CUDA events) at fuse=3 and fuse=1, beside
-   its memory bound and the plain version's time;
+5. the kernel's time per launch and per step (CUDA events) at fuse=3, 2
+   and 1, beside its memory bound, with the blocks an SM holds
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the plain
+   version's time;
 6. the build of the hop and fused-ring kernels (``csrc/hop.cu``,
    ``csrc/fused_ring.cu``): build time and ptxas lines;
 7. the hop kernel against ``hop_plain`` on the card, bit for bit:
@@ -348,6 +352,27 @@ def log_registers(name):
         elif "Used" in line and "registers" in line and fn:
             log(f"  {name}: {fn}: {line.split(':', 1)[1].strip()}; {spills}")
             fn = None
+
+
+def log_sw_registers():
+    """Per instantiation of the fused step (NX x NY cells a thread): its
+    registers, spills and static shared memory from ptxas's lines, and the
+    dynamic shared memory of the default tile at fuse 1, 2 and 3."""
+    cells = None
+    for line in _build.LOGS.get("sw_step", "").splitlines():
+        if "Compiling entry function" in line and "sw_step_kernel" in line:
+            nx, ny = line.split("ILi")[1].split("EE")[0].split("ELi")
+            cells = f"{nx} x {ny} cells a thread"
+            spills = ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and cells:
+            log(f"  sw_step: {cells}: {line.split(':', 1)[1].strip()}; "
+                f"{spills}")
+            cells = None
+    tile = kernel.DEFAULT_TILE
+    log(f"  sw_step: dynamic shared memory of tile {tile}: " + ", ".join(
+        f"fuse={f} {kernel.smem_bytes(tile, f)} B" for f in (1, 2, 3)))
 
 
 def reset_counts():
@@ -1624,6 +1649,7 @@ def main(argv=None):
         log(f"build: {len(KERNELS)} sources and the transport in parallel in "
             f"{time.perf_counter() - t0:.2f} s")
         log_build("sw_step", build_secs)
+        log_sw_registers()
     else:
         dev = torch.device("cpu")
         shape, reps = (64, 128), 1
@@ -1631,7 +1657,7 @@ def main(argv=None):
         build_secs = {}
 
     log(f"phase 2: kernel vs plain at {shape}")
-    max_abs, max_rel = check_kernel(shape, dev, (1, 3))
+    max_abs, max_rel = check_kernel(shape, dev, (1, 2, 3))
     log("phase 3: kernel vs plain at the edge shapes")
     for es in EDGE_SHAPES:
         a, r = check_kernel(es, dev, (1, 2, 3))
@@ -1908,29 +1934,39 @@ def phase5(shape, state1, model, card, launches, max_abs, max_rel, secs3,
     cells = nyp * nxp
     bytes_moved = 12 * cells * 4
     rows = {}
-    for fuse in (3, 1):
+    for fuse in (3, 2, 1):
         ms = launch_ms(fuse)
         plain_ms = time_ms(
             lambda: kernel.fused_step_plain(s, p, first=False, fuse=fuse), 5)
         mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         op_ms = FLOPS_PER_CELL_STEP * fuse * cells / F32_FLOPS_PER_S * 1e3
         bound_ms = max(mem_ms, op_ms)
-        rows[fuse] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        blocks = kernel.blocks_per_sm((nyp, nxp), fuse)
+        smem = kernel.smem_bytes(kernel.DEFAULT_TILE, fuse)
+        rows[fuse] = dict(ms=ms, ms_per_step=ms / fuse, plain_ms=plain_ms,
+                          bound_ms=bound_ms, blocks_per_sm=blocks,
                           bound_by="bytes" if mem_ms >= op_ms else "operations")
         log(f"  fuse={fuse}: {ms:.4f} ms/launch ({ms / fuse:.4f} ms/step), "
             f"bound {bound_ms:.4f} ms ({rows[fuse]['bound_by']}: "
             f"{mem_ms:.4f} ms bytes, {op_ms:.4f} ms flops), "
-            f"{bound_ms / ms:.3f} of the bound; plain {plain_ms:.4f} ms")
+            f"{bound_ms / ms:.3f} of the bound; {blocks} blocks per SM "
+            f"(tile {kernel.DEFAULT_TILE}, {smem} B); plain {plain_ms:.4f} ms")
+    best = min(rows, key=lambda f: rows[f]["ms_per_step"])
+    log(f"  fastest per step: fuse={best} (ms per step: " + ", ".join(
+        f"fuse={f} {r['ms_per_step']:.4f}" for f, r in rows.items()) + ")")
 
     row = {
         "name": "sw_fused_step", "route": "cuda",
         "source": "mpi4jax_tpu_torch/csrc/sw_step.cu",
         "replaces": "mpi4jax_tpu/models/_sw_pallas.py:82",
         "launches": launches, "max_abs_err": max_abs,
-        "err_over_scale": max_rel, "tolerance": chk.CHECK_TOL, "ok": True, "ms": rows[3]["ms"], "plain_ms": rows[3]["plain_ms"],
+        "err_over_scale": max_rel, "tolerance": chk.CHECK_TOL, "ok": True,
+        "ms": rows[3]["ms"], "plain_ms": rows[3]["plain_ms"],
         "bound_ms": rows[3]["bound_ms"], "bound_by": rows[3]["bound_by"],
-        "library_ms": None, "fuse": 3, "ms_fuse1": rows[1]["ms"],
-        "plain_ms_fuse1": rows[1]["plain_ms"],
+        "library_ms": None, "fuse": 3, "tile": list(kernel.DEFAULT_TILE),
+        "blocks_per_sm": rows[3]["blocks_per_sm"],
+        "ms_fuse2": rows[2]["ms"], "plain_ms_fuse2": rows[2]["plain_ms"],
+        "ms_fuse1": rows[1]["ms"], "plain_ms_fuse1": rows[1]["plain_ms"],
         "bound_ms_fuse1": rows[1]["bound_ms"], "shape": list(shape),
         "day_seconds_fuse3": secs3, "day_seconds_fuse1": secs1,
         "plain_day_seconds": plain_secs, "card": card,

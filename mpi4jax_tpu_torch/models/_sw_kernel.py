@@ -22,10 +22,12 @@ from .. import _build
 
 LAUNCHES = 0  # kernel launches since the last reset; read by chip_smoke.py
 
-DEFAULT_TILE = (32, 32)  # output rows x columns of one thread block
-HALO_PER_STEP = 4  # window cells per side per step: the stencil chain's depth
-SMEM_ARRAYS = 11  # six fields plus five intermediates in shared memory
+DEFAULT_TILE = (48, 52)  # output rows x columns of one thread block
+HALO_PER_STEP = 2  # window cells per side per step: a cell's dependence cone
+SMEM_ARRAYS = 7  # floats a window cell keeps in shared memory: h, u, v, 4 more
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (sm_90)
+LANES = 32  # threads along a window row
+MAX_THREAD_ROWS = 32  # rows of LANES threads in a block: at most 1024
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 12
@@ -35,10 +37,36 @@ _ARGTYPES = (
 )
 
 
-def smem_bytes(tile, fuse: int) -> int:
-    """Dynamic shared memory of one block: SMEM_ARRAYS window arrays."""
+def window(tile, fuse: int):
+    """The ``(rows, cols)`` of a block's window: the tile and
+    ``HALO_PER_STEP * fuse`` cells on every side."""
     halo = HALO_PER_STEP * fuse
-    return SMEM_ARRAYS * (tile[0] + 2 * halo) * (tile[1] + 2 * halo) * 4
+    return tile[0] + 2 * halo, tile[1] + 2 * halo
+
+
+def smem_bytes(tile, fuse: int) -> int:
+    """Dynamic shared memory of one block: SMEM_ARRAYS floats a window
+    cell."""
+    wy, wx = window(tile, fuse)
+    return SMEM_ARRAYS * wy * wx * 4
+
+
+def thread_block(tile, fuse: int):
+    """``(cols, rows, thread_rows)``: the window cells a thread owns along a
+    row and along a column, and the block's rows of ``LANES`` threads, as
+    ``csrc/sw_step.cu:thread_block`` chooses them.  A thread owns at most 8
+    cells, so a window wider than 128 columns, or taller than 128 rows (64
+    rows when it is wider than 64 columns), raises ``ValueError``."""
+    wy, wx = window(tile, fuse)
+    cols = -(-wx // LANES)
+    rows = 4 if cols <= 2 else 2
+    thread_rows = -(-wy // rows)
+    if cols > 4 or thread_rows > MAX_THREAD_ROWS:
+        raise ValueError(
+            f"tile {tuple(tile)} at fuse={fuse}: a {wy}x{wx} window needs "
+            f"more than 8 cells a thread in a block of "
+            f"{LANES}x{MAX_THREAD_ROWS}")
+    return cols, rows, thread_rows
 
 
 def _check(state, out, params, first, fuse, tile):
@@ -66,11 +94,39 @@ def _check(state, out, params, first, fuse, tile):
         ins = {f.data_ptr() for f in state}
         if any(f.data_ptr() in ins for f in out):
             raise ValueError("out must not alias the input state")
+    if min(tile) < 1:
+        raise ValueError(f"tile {tile} has an empty side")
     if smem_bytes(tile, fuse) > SMEM_LIMIT:
         raise ValueError(
             f"tile {tile} at fuse={fuse} needs {smem_bytes(tile, fuse)} B of "
             f"shared memory, more than {SMEM_LIMIT}"
         )
+    thread_block(tile, fuse)
+
+
+def _entry(lib):
+    """The library's ``sw_fused_step`` with its argument types, set once."""
+    fn = lib.sw_fused_step
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def blocks_per_sm(shape, fuse: int, tile=None) -> int:
+    """How many blocks of a launch at ``fuse`` and ``tile`` one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Card only."""
+    tile = tuple(tile) if tile is not None else DEFAULT_TILE
+    lib = _build.library("sw_step")
+    fn = lib.sw_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(shape[0], shape[1], fuse, tile[0], tile[1], ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(
+            f"sw_blocks_per_sm failed: {_build.error_string(lib, err)}")
+    return blocks.value
 
 
 def fused_step_plain(state, params, *, first: bool, fuse: int = 1):
@@ -93,7 +149,7 @@ def fused_step(state, params, *, first: bool, fuse: int = 1, out=None,
     columns (the solver's invariant).  ``first=True`` is the Euler bootstrap
     (Adams–Bashforth with a=1, b=0) and needs ``fuse == 1``.  ``out``: six
     preallocated tensors that must not alias ``state``.  ``tile``: the
-    ``(rows, cols)`` that one thread block writes (default 32x32).
+    ``(rows, cols)`` that one thread block writes (default ``DEFAULT_TILE``).
     """
     global LAUNCHES
     from .shallow_water import SWState
@@ -112,9 +168,7 @@ def fused_step(state, params, *, first: bool, fuse: int = 1, out=None,
         out = SWState(*(torch.empty_like(f) for f in state))
     nyp, nxp = state[0].shape
     lib = _build.library("sw_step")
-    fn = lib.sw_fused_step
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _entry(lib)
     p = params
     stream = torch.cuda.current_stream(state[0].device).cuda_stream
     with torch.cuda.device(state[0].device):

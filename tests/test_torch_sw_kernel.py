@@ -3,14 +3,16 @@
 - ``fused_step`` on CPU tensors (its plain version) against the JAX
   package's XLA step, at 32x64 and at the edge shapes of
   ``tests/models/test_sw_pallas.py``;
-- a torch emulation of ``csrc/sw_step.cu``'s tile windows (H = 4*fuse
-  rows and columns around each tile, the modular column map, the same
-  masks and phases), run over every 16x16 tile against the plain step, bit
-  for bit: the halo depth and masks that the CUDA kernel relies on, checked
-  on the CPU.  It runs on the check states of ``models/_sw_check.py``
-  (seeded grid-scale noise, the solver's viscosity and 1000x it), where a
-  window one cell per step too shallow, or a missing viscous pass, changes
-  the bits;
+- a torch emulation of ``csrc/sw_step.cu``'s walk (its default tile, a
+  window of H = 2*fuse rows and columns around each tile, the modular
+  column map, clamping at the window's edge, the ghost-row and wall masks
+  and the order of its four passes), run over every tile against the plain
+  step, bit for bit: the window depth and masks that the CUDA kernel
+  relies on, checked on the CPU.  It runs on the check states of
+  ``models/_sw_check.py`` (seeded grid-scale noise, the solver's viscosity
+  and 1000x it), where a window one cell per step too shallow, or a
+  missing viscous pass, changes the bits;
+- the kernel's thread block: every window cell owned by one thread;
 - those check states themselves.
 The CUDA kernel itself is tested on the card by
 ``test_torch_sw_kernel_gpu.py``.
@@ -111,12 +113,43 @@ def test_fused_step_rejects_bad_input():
                               first=False)
     with pytest.raises(ValueError, match="shared memory"):
         _sw_kernel.fused_step(s0, PARAMS, first=False, fuse=3,
-                              tile=(64, 64))
+                              tile=(96, 96))
 
 
 def test_smem_of_default_tile_fits_at_fuse_3():
-    assert _sw_kernel.smem_bytes(_sw_kernel.DEFAULT_TILE, 3) \
-        <= _sw_kernel.SMEM_LIMIT
+    # and two blocks share an SM (228 KiB, 1 KiB of it reserved per block)
+    need = _sw_kernel.smem_bytes(_sw_kernel.DEFAULT_TILE, 3)
+    assert need <= _sw_kernel.SMEM_LIMIT
+    assert 2 * (need + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("tile", [_sw_kernel.DEFAULT_TILE, (16, 16), (1, 1),
+                                  (30, 100), (60, 40), (110, 30)])
+@pytest.mark.parametrize("fuse", [1, 2, 3])
+def test_thread_block_owns_every_window_cell_once(tile, fuse):
+    # the kernel's thread (x, y) owns window columns x + 32 j and rows
+    # y + R i; together they cover the window, no cell twice, no thread
+    # past 8 cells
+    cols, rows, thread_rows = _sw_kernel.thread_block(tile, fuse)
+    wy, wx = _sw_kernel.window(tile, fuse)
+    assert cols * rows <= 8 and thread_rows <= _sw_kernel.MAX_THREAD_ROWS
+    owned = torch.zeros((thread_rows * rows, _sw_kernel.LANES * cols),
+                        dtype=torch.int64)
+    for y in range(thread_rows):
+        for i in range(rows):
+            for j in range(cols):
+                owned[y + thread_rows * i,
+                      j * _sw_kernel.LANES:(j + 1) * _sw_kernel.LANES] += 1
+    assert bool((owned[:wy, :wx] == 1).all())
+
+
+def test_thread_block_rejects_a_window_it_cannot_cover():
+    with pytest.raises(ValueError, match="8 cells"):
+        _sw_kernel.thread_block((20, 120), 3)  # 32x132: five cells a row
+    with pytest.raises(ValueError, match="8 cells"):
+        _sw_kernel.thread_block((70, 80), 1)  # 74x84: 37 rows of threads
+    with pytest.raises(ValueError, match="8 cells"):
+        _sw_kernel.thread_block((130, 40), 1)  # 134x44: 34 rows of threads
 
 
 # -- torch emulation of csrc/sw_step.cu ------------------------------------
@@ -138,23 +171,28 @@ def _w(a):  # column - 1
 
 
 def _window_steps(win, gr, nyp, p, a, b, fuse):
-    """``fuse`` steps on one window, phase for phase as the CUDA kernel."""
+    """``fuse`` steps on one window, pass for pass as the CUDA kernel."""
     h, u, v, dh, du, dv = win
-    ghost = (gr <= 0) | (gr >= nyp - 1)
-    interior = ~ghost
+    interior = (gr >= 1) & (gr <= nyp - 2)
     wall = gr == nyp - 2
     zero = torch.zeros(())
     dx, dy, g, nu, dt = p.dx, p.dy, p.gravity, p.viscosity, p.dt
+    f = p.coriolis_f + p.coriolis_beta * ((gr - 1).float() * dy)
+
+    def live(x):  # a pass writes the interior rows; ghost rows stay zero
+        return torch.where(interior, x, zero)
+
     for _ in range(fuse):
-        hc = torch.where(gr == 0, _n(h), torch.where(gr == nyp - 1, _s(h), h))
-        fe = torch.where(ghost, zero, 0.5 * (hc + _e(hc)) * u)
-        fn = torch.where(ghost | wall, zero, 0.5 * (hc + _n(hc)) * v)
-        f = p.coriolis_f + p.coriolis_beta * ((gr - 1).float() * dy)
+        # fluxes: hc is h, but the wall row's north hc is its own h
+        hcn = torch.where(wall, h, _n(h))
+        hcne = torch.where(wall, _e(h), _n(_e(h)))
+        fe = live(0.5 * (h + _e(h)) * u)
+        fn = live(torch.where(wall, zero, 0.5 * (h + hcn) * v))
         zeta = (_e(v) - v) / dx - (_n(u) - u) / dy
-        thick = 0.25 * (hc + _e(hc) + _n(hc) + _n(_e(hc)))
-        q = torch.where(ghost, zero, (f + zeta) / thick)
-        ke = torch.where(ghost, zero, 0.5 * (0.5 * (u * u + _w(u) * _w(u))
-                                             + 0.5 * (v * v + _s(v) * _s(v))))
+        q = live((f + zeta) / (0.25 * (h + _e(h) + hcn + hcne)))
+        ke = live(0.5 * (0.5 * (u * u + _w(u) * _w(u))
+                         + 0.5 * (v * v + _s(v) * _s(v))))
+        # tendencies; u and v update in place, the new h waits
         dh_new = -(fe - _w(fe)) / dx - (fn - _s(fn)) / dy
         du_new = (-g * (_e(h) - h) / dx
                   + 0.5 * (q * 0.5 * (fn + _e(fn))
@@ -164,24 +202,30 @@ def _window_steps(win, gr, nyp, p, a, b, fuse):
                   - 0.5 * (q * 0.5 * (fe + _n(fe))
                            + _w(q) * 0.5 * (_w(fe) + _n(_w(fe))))
                   - (_n(ke) - ke) / dy)
-        h = torch.where(interior, h + dt * (a * dh_new + b * dh), h)
+        h_new = torch.where(interior, h + dt * (a * dh_new + b * dh), h)
         u = torch.where(interior, u + dt * (a * du_new + b * du), u)
-        v = torch.where(interior, v + dt * (a * dv_new + b * dv), v)
-        v = torch.where(wall, zero, v)
-        dh, du, dv = dh_new, du_new, dv_new
-        gxu = torch.where(ghost, zero, nu * (_e(u) - u) / dx)
-        gyu = torch.where(ghost | wall, zero, nu * (_n(u) - u) / dy)
-        gxv = torch.where(ghost, zero, nu * (_e(v) - v) / dx)
-        gyv = torch.where(ghost | wall, zero, nu * (_n(v) - v) / dy)
+        v = torch.where(wall, zero,
+                        torch.where(interior, v + dt * (a * dv_new + b * dv),
+                                    v))
+        dh, du, dv = (torch.where(interior, t, d) for t, d in
+                      ((dh_new, dh), (du_new, du), (dv_new, dv)))
+        # viscous fluxes, and h takes its new value
+        gxu = live(nu * (_e(u) - u) / dx)
+        gyu = live(torch.where(wall, zero, nu * (_n(u) - u) / dy))
+        gxv = live(nu * (_e(v) - v) / dx)
+        gyv = live(torch.where(wall, zero, nu * (_n(v) - v) / dy))
+        h = h_new
+        # viscous update
         u = torch.where(interior, u + dt * ((gxu - _w(gxu)) / dx
                                             + (gyu - _s(gyu)) / dy), u)
-        v = torch.where(interior, v + dt * ((gxv - _w(gxv)) / dx
-                                            + (gyv - _s(gyv)) / dy), v)
-        v = torch.where(wall, zero, v)
+        v = torch.where(wall, zero,
+                        torch.where(interior,
+                                    v + dt * ((gxv - _w(gxv)) / dx
+                                              + (gyv - _s(gyv)) / dy), v))
     return h, u, v, dh, du, dv
 
 
-def emulate_kernel(state, p, *, first, fuse, tile=(16, 16),
+def emulate_kernel(state, p, *, first, fuse, tile=_sw_kernel.DEFAULT_TILE,
                    halo_per_step=_sw_kernel.HALO_PER_STEP):
     """What ``sw_fused_step`` computes, one tile window at a time."""
     nyp, X = state[0].shape
@@ -238,15 +282,39 @@ def test_tile_emulation_euler_step(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_tile_emulation_matches_plain_at_half_the_halo(shape):
     # one step's dependence cone reaches 2 cells from a cell (the viscous
-    # pass reads the updated u, v one cell beyond the tendencies' reach);
-    # the kernel's window keeps 4 per step
+    # pass reads the updated u, v one cell beyond the tendencies' reach):
+    # half the first kernel's 4 per step, and the kernel's window now; here
+    # over 16x16 tiles, where most windows meet a ghost row or a wrap
     for params in CHECK_PARAMS:
         for s, first, fuse in _sw_check.cases(shape, params, "cpu", (1, 3)):
             got = emulate_kernel(s, params, first=first, fuse=fuse,
-                                 halo_per_step=2)
+                                 tile=(16, 16), halo_per_step=2)
             ref = _sw_kernel.fused_step_plain(s, params, first=first,
                                               fuse=fuse)
             _assert_state_equal(got, ref, f"halo 2 per step, fuse={fuse}")
+
+
+@pytest.mark.parametrize("shape", [(32, 64), (70, 32)])
+def test_tile_emulation_one_cell_per_step_too_shallow_changes_the_bits(shape):
+    """A window of 1 cell per step changes the bits at fuse 1 and 3 on the
+    stiff check state.  Its error over scale (``_sw_check.errors``, 16x16
+    tiles, 32x64 and 70x32) is 2.5e-3 to 4.7e-3 at fuse=1 but only 0 to
+    8.2e-6 at fuse=3, far under ``CHECK_TOL`` (2e-4) and the kernel's own
+    rounding (1.26e-5): at fuse > 1 the card's tolerance check cannot see a
+    window this shallow, and only this bit-for-bit emulation guards the
+    window's depth."""
+    stiff = CHECK_PARAMS[1]
+    for s, first, fuse in _sw_check.cases(shape, stiff, "cpu", (1, 3)):
+        if first:
+            continue
+        for tile in ((16, 16), _sw_kernel.DEFAULT_TILE):
+            got = emulate_kernel(s, stiff, first=False, fuse=fuse, tile=tile,
+                                 halo_per_step=1)
+            ref = _sw_kernel.fused_step_plain(s, stiff, first=False,
+                                              fuse=fuse)
+            assert not all(torch.equal(a, b) for a, b in zip(got, ref)), (
+                f"a window of 1 per step kept the bits at fuse={fuse}, "
+                f"tile {tile}")
 
 
 # -- the check states --------------------------------------------------------

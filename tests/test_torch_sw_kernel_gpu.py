@@ -46,7 +46,10 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("tile", [None, (16, 16)])
+# the default tile, 16x16, and a tile whose window fills neither its rows of
+# threads (25, 29, 33 rows over 4 a thread) nor its 32-thread rows (41, 45,
+# 49 columns)
+@pytest.mark.parametrize("tile", [None, (16, 16), (21, 37)])
 def test_cuda_kernel_matches_plain(cuda, shape, tile):
     before = _sw_kernel.LAUNCHES
     launched = 0
@@ -65,6 +68,29 @@ def test_cuda_kernel_matches_plain(cuda, shape, tile):
                     f"fuse={fuse} tile={tile} at {shape}: {diff:.3e} "
                     f"({rel:.3e} of its scale)")
     assert _sw_kernel.LAUNCHES == before + launched
+
+
+@pytest.mark.gpu
+def test_window_past_shared_memory_raises_before_launch(cuda):
+    model = ShallowWater((70, 50), PARAMS, device=cuda)
+    s = model._step_local(model.init(), True)
+    fuse = 20  # a 112x132 window: 413,952 B of shared memory
+    assert _sw_kernel.smem_bytes(_sw_kernel.DEFAULT_TILE, fuse) \
+        > _sw_kernel.SMEM_LIMIT
+    before = _sw_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        _sw_kernel.fused_step(s, PARAMS, first=False, fuse=fuse)
+    with pytest.raises(ValueError, match="shared memory"):
+        model.step_fn(40, fuse=fuse)(s)
+    torch.cuda.synchronize()
+    assert _sw_kernel.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_blocks_per_sm_of_the_default_tile(cuda):
+    # two blocks of the default tile share an SM at fuse 1, 2 and 3
+    for fuse in (1, 2, 3):
+        assert _sw_kernel.blocks_per_sm((1802, 3602), fuse) >= 2, fuse
 
 
 @pytest.mark.gpu
