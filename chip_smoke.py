@@ -157,12 +157,37 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    5e-2 of the exact sum; one launch of kernel 3 per rank and call, and of
    kernel 4 per rank and quantized call (each job's counts start at 0 in
    its rank processes); ms per call at 16 and 64 MiB per rank with its
-   phase split, beside the native ``hring`` with the leg off.
+   phase split, beside the native ``hring`` with the leg off;
+25. path (h): the data-parallel ResNet-50 step
+   (``mpi4jax_tpu_torch.benchmarks.resnet_step``: bf16, 224x224, a global
+   batch of 32, SGD) at n = 1 and 4 ranks, one warm-up step then 20
+   timed one by one (the median and the spread: the step is bound by the
+   host), the counters reset just before each run and read just after:
+   one allreduce per leaf and the loss's ``pmean``, each on the launches
+   its arm gives, and at n = 4 the 208 hops and 52 fused-ring launches a
+   step counted from ResNet-50's leaves; finite losses; the profiler's
+   groups; one step on the kernel route bit for bit against one on the
+   plain route (``cudnn.deterministic``);
+26. path (i): the pipeline-parallel GPT-2 124M step
+   (``benchmarks.pp_step``: f32, 4 microbatches of B2 T1024, SGD) at pp =
+   1 and 4, with 3 timed steps: at pp = 4 seven hops in the forward and
+   six in the backward (autograd runs no reverse hop for the last tick),
+   and the loss's and the replicated fields' allreduces, 19 hops and 2
+   fused-ring launches a step; the peak memory; the kernel route bit for
+   bit against the plain route;
+27. path (j): the alltoall family at n = 4 (``benchmarks.alltoall_family``):
+   Ulysses attention at B4 T4096 H16 D128 bf16 causal (4 alltoall launches
+   forward, 8 forward and backward), ``moe_ffn`` at d_model 768, d_ff
+   3072, 4 experts, 8192 f32 tokens a rank (4 launches forward and
+   backward), and ``allreduce(compression="int8")`` at 16 and 64 MiB per
+   rank (one alltoall and 3 hops a call) beside the exact allreduce, with
+   its errors within the JAX package's test criteria; each bit for bit
+   against the plain route and timed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23 and 24 on the CPU through the plain versions at a small size and prints
+23-27 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -182,13 +207,17 @@ import torch
 
 from mpi4jax_tpu_torch import _build, ops
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
+from mpi4jax_tpu_torch.benchmarks import alltoall_family as a2a_bench
 from mpi4jax_tpu_torch.benchmarks._profile import RERUNS, kernel_ms_by_group
 from mpi4jax_tpu_torch.benchmarks import gpt_step as gpt_bench
 from mpi4jax_tpu_torch.benchmarks import ici_leg
+from mpi4jax_tpu_torch.benchmarks import pp_step as pp_bench
+from mpi4jax_tpu_torch.benchmarks import resnet_step as resnet_bench
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
+from mpi4jax_tpu_torch.models import resnet
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import spectral
 from mpi4jax_tpu_torch.models import transformer as gpt
@@ -255,6 +284,13 @@ QUANT_TIMED = (16 * 1024 * 1024, 64 * 1024 * 1024)
 G_COUNTS = (3, 513, 70000, 4 * 1024 * 1024)
 G_SIZES = (16 * 1024 * 1024, 64 * 1024 * 1024)
 G_CALLS = 5
+PATH_STEPS = 3  # timed steps of paths (i) and (j), after a warm-up
+# launches per step of the full-width paths, counted from the models'
+# leaves and schedules by hand (not from the arms that route them)
+H_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
+              4: {"hop": 208, "fused_ring": 52}}
+I_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
+              4: {"hop": 19, "fused_ring": 2}}
 
 
 def log(msg=""):
@@ -1557,6 +1593,190 @@ def path_g(dev, on_card):
     return jobs
 
 
+def _profile_line(what, prof):
+    log(f"  {what} profiler: card busy {prof['busy_ms_per_step']:.2f} of "
+        f"{prof['wall_ms_per_step']:.2f} ms per step "
+        f"({prof['busy_share']:.3f}), by group " + ", ".join(
+            f"{k} {v:.3f}" for k, v in prof["ms_per_step_by_group"].items()))
+
+
+def _path_launches(what, launches, want, steps, on_card):
+    """The counters after a run of ``steps`` steps against ``want`` per
+    step (on the card; the CPU runs the plain versions, which count
+    nothing)."""
+    want = {k: want[k] * steps for k in launches}
+    if on_card and launches != want:
+        fail(f"{what}: launched {launches} in {steps} steps, expected "
+             f"{want}")
+
+
+def path_h(dev, on_card, card):
+    """Phase 25: path (h), the DP ResNet-50 step at n = 1 and 4, the
+    counters reset just before each run and read just after; the
+    profiler's groups; the kernel route bit for bit against the plain
+    route at n = 4."""
+    cfg = resnet_bench.CFG if on_card else resnet.ResNetConfig(
+        stages=(1, 1), widths=(8, 16), n_classes=10, groups=4,
+        block="bottleneck", stem="imagenet", dtype="bfloat16")
+    batch, image = ((resnet_bench.BATCH, resnet_bench.IMAGE) if on_card
+                    else (8, 32))
+    steps = resnet_bench.STEPS if on_card else PATH_STEPS
+    runs = {}
+    for n in resnet_bench.RANKS:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        reset_counts()
+        rec, step_args = resnet_bench.run(
+            n, steps, cfg=cfg, batch=batch, image=image, device=dev)
+        launches = {k: coll.LAUNCHES[k] for k in resnet_bench.COLLECTIVES}
+        rec["launches"] = launches
+        _path_launches(f"path (h) n={n}", launches, rec["expected_launches"],
+                       steps + 1, on_card)
+        _path_launches(f"path (h) n={n}, counted by hand", launches,
+                       H_LAUNCHES[n], steps + 1, on_card)
+        if not all(np.isfinite(rec["losses"])):
+            fail(f"path (h) n={n}: losses {rec['losses']}")
+        log(f"  n={n}: {rec['ms_per_step']:.2f} ms per step (median of "
+            f"{steps} after a warm-up; {rec['ms_min']:.2f}-"
+            f"{rec['ms_max']:.2f}), {rec['images_per_s']:.1f} images/s, "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['step_tflop']:.3f} TFLOP "
+            f"a step); losses {[round(x, 4) for x in rec['losses'][:3]]}"
+            f"...{round(rec['losses'][-1], 4)}; launches in {steps + 1} "
+            f"steps {launches}, per step {rec['launches_per_step']}, "
+            f"{rec['expected_launches']}; {rec['leaves']} leaves, "
+            f"{rec['params_M']:.2f} M params [{card}]")
+        if on_card:
+            rec["profile"] = resnet_bench.profile(step_args)
+            _profile_line(f"n={n}", rec["profile"])
+        del step_args
+        runs[f"n={n}"] = rec
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    routes = resnet_bench.route_check(cfg, 4, batch=batch, image=image,
+                                      device=dev)
+    log(f"  n=4 kernel route vs plain route, one step (cudnn "
+        f"deterministic): loss {routes['loss_kernel']:.6f} vs "
+        f"{routes['loss_plain']:.6f}, bit for bit {routes['bit_equal']}, "
+        f"largest difference {routes['max_abs_diff']:.3e}")
+    if not routes["bit_equal"]:
+        fail(f"path (h): kernel route against plain route {routes}")
+    runs["route_check"] = routes
+    return runs
+
+
+def path_i(dev, on_card, card):
+    """Phase 26: path (i), the pipeline-parallel GPT-2 124M step at pp = 1
+    and 4, the counters reset just before each run and read just after;
+    the profiler's groups; the kernel route bit for bit against the plain
+    route at pp = 4."""
+    cfg = pp_bench.CFG if on_card else gpt.GPTConfig(
+        vocab=64, d_model=32, n_heads=4, n_layers=4, d_ff=64, max_seq=32)
+    micro, batch, seq = ((pp_bench.MICRO, pp_bench.BATCH, pp_bench.SEQ)
+                         if on_card else (4, 2, 32))
+    runs = {}
+    for pp in pp_bench.PPS:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        reset_counts()
+        rec, (model, toks) = pp_bench.run(pp, PATH_STEPS, cfg=cfg,
+                                          micro=micro, batch=batch, seq=seq,
+                                          device=dev)
+        launches = {k: coll.LAUNCHES[k] for k in pp_bench.COLLECTIVES}
+        rec["launches"] = launches
+        _path_launches(f"path (i) pp={pp}", launches,
+                       rec["expected_launches"], PATH_STEPS + 1, on_card)
+        _path_launches(f"path (i) pp={pp}, counted by hand", launches,
+                       I_LAUNCHES[pp], PATH_STEPS + 1, on_card)
+        if not all(np.isfinite(rec["losses"])):
+            fail(f"path (i) pp={pp}: losses {rec['losses']}")
+        mem = (f"{rec['peak_memory_GB']:.2f} GB peak"
+               if rec["peak_memory_GB"] is not None else "memory not measured")
+        log(f"  pp={pp}: {rec['ms_per_step']:.2f} ms per step (mean of "
+            f"{PATH_STEPS} after a warm-up), {rec['tokens_per_s']:.0f} "
+            f"tokens/s, bound {rec['bound_ms']:.2f} ms (masked share "
+            f"{rec['masked_share']:.3f}), {mem}; losses "
+            f"{[round(x, 4) for x in rec['losses']]}; launches in "
+            f"{PATH_STEPS + 1} steps {launches}, per step "
+            f"{rec['launches_per_step']} [{card}]")
+        if on_card:
+            rec["profile"] = pp_bench.profile(model, toks)
+            _profile_line(f"pp={pp}", rec["profile"])
+        del model, toks
+        runs[f"pp={pp}"] = rec
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    routes = pp_bench.route_check(cfg, 4, micro=micro, batch=batch, seq=seq,
+                                  device=dev)
+    log(f"  pp=4 kernel route vs plain route, one step: loss "
+        f"{routes['loss_kernel']:.6f} vs {routes['loss_plain']:.6f}, bit for "
+        f"bit {routes['bit_equal']}, largest difference "
+        f"{routes['max_abs_diff']:.3e}")
+    if not routes["bit_equal"]:
+        fail(f"path (i): kernel route against plain route {routes}")
+    runs["route_check"] = routes
+    return runs
+
+
+def path_j(dev, on_card, card):
+    """Phase 27: path (j), the alltoall family at n = 4: Ulysses attention,
+    ``moe_ffn`` and the int8 allreduce, each with its launches counted
+    over one call, held bit for bit to the plain route, and timed."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shape = a2a_bench.ULYSSES if on_card else (2, 64, 8, 16)
+    moe_cfg = a2a_bench.MOE if on_card else dict(
+        d_model=32, d_ff=64, tokens=64, capacity_factor=1.25)
+    sizes = a2a_bench.INT8_BYTES if on_card else (4096, 65536)
+    want = int(on_card)
+    reset_counts()
+    u = a2a_bench.run_ulysses(shape, reps=PATH_STEPS, device=dev)
+    if u["launches_forward"]["alltoall"] != 4 * want or \
+            u["launches_forward_backward"]["alltoall"] != 8 * want:
+        fail(f"path (j) Ulysses: alltoall launches {u}")
+    if not (u["bit_equal_forward"] and u["bit_equal_forward_backward"]
+            and u["finite"]):
+        fail(f"path (j) Ulysses: against the plain route {u}")
+    log(f"  Ulysses B{shape[0]} T{shape[1]} H{shape[2]} D{shape[3]} bf16 "
+        f"causal, n=4: forward {u['ms_forward']:.3f} ms (bound "
+        f"{u['bound_ms_forward']:.3f}), forward+backward "
+        f"{u['ms_forward_backward']:.3f} ms (bound "
+        f"{u['bound_ms_forward_backward']:.3f}); launches "
+        f"{u['launches_forward']} / {u['launches_forward_backward']}; bit "
+        f"for bit the plain route [{card}]")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    m = a2a_bench.run_moe(moe_cfg, reps=PATH_STEPS, device=dev)
+    if m["launches_forward_backward"]["alltoall"] != 4 * want:
+        fail(f"path (j) MoE: alltoall launches {m}")
+    if not (m["bit_equal_forward_backward"] and m["finite"]):
+        fail(f"path (j) MoE: against the plain route {m}")
+    log(f"  moe_ffn d_model {m['d_model']} d_ff {m['d_ff']}, "
+        f"{m['tokens_total']} tokens over 4 experts, capacity {m['capacity']} ({m['tokens_kept']}"
+        f" kept): forward+backward {m['ms_forward_backward']:.3f} ms (bound "
+        f"{m['bound_ms_forward_backward']:.3f}); launches "
+        f"{m['launches_forward_backward']}; bit for bit the plain route "
+        f"[{card}]")
+    q = a2a_bench.run_int8(sizes, reps=G_CALLS, device=dev)
+    for size in sizes:
+        r = q[f"{size}"]
+        if r["launches"] != {"hop": 3 * want, "fused_ring": 0,
+                             "alltoall": want}:
+            fail(f"path (j) int8 {size} B: launches {r['launches']}")
+        if not r["bit_equal"]:
+            fail(f"path (j) int8 {size} B: not bit for bit the plain route")
+        # the JAX package's own criteria for the mesh schedule
+        if not (r["median_rel_err"] < 2e-2
+                and r["max_abs_err_over_max"] < 0.2):
+            fail(f"path (j) int8 {size} B: errors {r}")
+        log(f"  allreduce(compression='int8'), {size} B f32 per rank, n=4: "
+            f"{r['ms']:.4f} ms per call (bound {r['bound_ms']:.4f}), the "
+            f"exact allreduce {r['exact_ms']:.4f} ms; median relative error "
+            f"{r['median_rel_err']:.3e}, largest {r['max_abs_err_over_max']:.3e}"
+            f" of the largest sum; launches {r['launches']}, the exact "
+            f"{r['exact_launches']}; bit for bit the plain route [{card}]")
+    return {"ulysses": u, "moe": m, "int8": q}
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -1623,10 +1843,9 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21, 23 and 24 "
-                         "on the "
-                         "CPU, plain versions, small size; prints no result "
-                         "line")
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-27 "
+                         "on the CPU, plain versions, small size; prints no "
+                         "result line")
     args = ap.parse_args(argv)
 
     on_card = not args.rehearse
@@ -1761,6 +1980,15 @@ def main(argv=None):
     log(f"phase 24: path (g), the hierarchical allreduce of 4 ranks on "
         f"{ici_leg.FAKE_HOSTS} with the leg on the card [{card}]")
     g_jobs = path_g(dev, on_card)
+    log(f"phase 25: path (h), the DP ResNet-50 step at n = "
+        f"{', '.join(map(str, resnet_bench.RANKS))} [{card}]")
+    h_runs = path_h(dev, on_card, card)
+    log(f"phase 26: path (i), the pipeline-parallel GPT-2 124M step at pp "
+        f"= {', '.join(map(str, pp_bench.PPS))} [{card}]")
+    i_runs = path_i(dev, on_card, card)
+    log(f"phase 27: path (j), Ulysses attention, moe_ffn and the int8 "
+        f"allreduce at n = 4 [{card}]")
+    j_runs = path_j(dev, on_card, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:
@@ -1903,6 +2131,27 @@ def main(argv=None):
             for label, rec in g_jobs.items()},
         "card": card,
     }
+    h_launches = {k: sum(r["launches"][k] for key, r in h_runs.items()
+                         if key != "route_check")
+                  for k in resnet_bench.COLLECTIVES}
+    i_launches = {k: sum(r["launches"][k] for key, r in i_runs.items()
+                         if key != "route_check")
+                  for k in pp_bench.COLLECTIVES}
+    j_launches = {k: (j_runs["ulysses"]["launches_forward"][k]
+                      + j_runs["ulysses"]["launches_forward_backward"][k]
+                      + j_runs["moe"]["launches_forward_backward"][k]
+                      + sum(r["launches"][k]
+                            for key, r in j_runs["int8"].items()
+                            if key != "device"))
+                  for k in a2a_bench.COLLECTIVES}
+    for row, name in ((hop_row, "hop"), (ring_row, "fused_ring"),
+                      (a2a_row, "alltoall")):
+        row["launches_path_h"] = h_launches.get(name, 0)
+        row["launches_path_i"] = i_launches.get(name, 0)
+        row["launches_path_j"] = j_launches.get(name, 0)
+    ring_row["path_h"] = h_runs
+    hop_row["path_i"] = i_runs
+    a2a_row["path_j"] = j_runs
     log(f"card: {card}")
     print(json.dumps({"kernels": [sw_row, hop_row, ring_row, a2a_row,
                                   flash_row, *bwd_rows, quant_row]}))

@@ -28,6 +28,14 @@ Ported so far:
 - the dp x tp x sp GPT (``models/transformer.py``), whose train step runs
   those three kernels in every layer, and its CLI
   (``examples/train_gpt.py``);
+- the parallel layers above the ops (``parallel/``): ``dp`` (the gradient
+  sync, per leaf or bucketed), ``tp``, ``pipeline`` (the SPMD GPipe, one
+  hop per tick), ``ulysses`` and ``moe`` (their exchanges on the alltoall
+  kernel); and ``allreduce(compression="int8")`` on a mesh comm
+  (``ops/quantized.py``: one alltoall and one all-gather of int8 rows);
+- the pipeline-parallel GPT (``models/pp_transformer.py``, the CLI's
+  ``--pp``) and the data-parallel ResNet (``models/resnet.py``) with its
+  CLI (``examples/train_resnet.py``);
 - the world tier as far as the hierarchical f32 allreduce
   (``runtime/``: the launcher, ``WorldComm`` and the native transport's
   binding; ``topo/``: discovery, the simulators and the intra-island leg,

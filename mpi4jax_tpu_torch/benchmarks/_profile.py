@@ -88,6 +88,67 @@ def kernel_ms_by_group(fn, calls: int, group, device, expect=()):
                        f"{SESSIONS} sessions")
 
 
+def breakdown(fn, calls: int, group, device, top: int = 10):
+    """``kernel_ms_by_group`` of ``fn`` by kernel name, summed by
+    ``group(name)``: the host-timed and busy ms per call, the busy share,
+    the ms per call by group, largest first, and the ``top`` kernels with
+    their groups."""
+    wall_ms, by_name, _ = kernel_ms_by_group(fn, calls, lambda name: name,
+                                             device)
+    groups = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    busy = sum(groups.values())
+    return {"wall_ms_per_step": wall_ms, "busy_ms_per_step": busy,
+            "busy_share": busy / wall_ms,
+            "ms_per_step_by_group": dict(sorted(groups.items(),
+                                                key=lambda kv: -kv[1])),
+            "top_kernels": [(name[:120], group(name), ms) for name, ms in
+                            list(by_name.items())[:top]]}
+
+
+def time_calls(fn, calls: int, device):
+    """``calls`` calls of ``fn`` (after none: warm up first): the ms per
+    call, from CUDA events on the card (the host clock on the CPU, which
+    times the plain versions), and the calls' results."""
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out = [fn() for _ in range(calls)]
+    if on_card:
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls, out
+    return (time.perf_counter() - t0) * 1e3 / calls, out
+
+
+def time_each(fn, calls: int, device):
+    """``calls`` calls of ``fn`` (after none: warm up first), each timed
+    on its own: the ms of every call, from CUDA events recorded between
+    the calls on the card (the host clock on the CPU), and the calls'
+    results."""
+    if device.type != "cuda":
+        ms, out = [], []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            out.append(fn())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, out
+    torch.cuda.synchronize(device)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    marks[0].record()
+    out = []
+    for mark in marks[1:]:
+        out.append(fn())
+        mark.record()
+    marks[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sessions", type=int, default=200)

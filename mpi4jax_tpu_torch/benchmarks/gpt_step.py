@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import time
 
 import numpy as np
 import torch
@@ -39,7 +38,7 @@ import torch
 from ..models.transformer import GPT, GPTConfig, GPTParams, init_params
 from ..ops import _collectives, flash
 from ..parallel.mesh import MeshComm
-from ._profile import kernel_ms_by_group
+from ._profile import breakdown, time_calls
 
 CFG = GPTConfig(vocab=50304, d_model=768, n_heads=12, n_layers=12,
                 d_ff=3072, max_seq=1024, dtype="bfloat16")
@@ -93,19 +92,7 @@ def run(mesh=(1, 1, 1), steps: int = 3, *, cfg=CFG, batch: int = BATCH,
     model.train_step(toks)  # warm-up: builds and loads the kernels
     before = counts()
     on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    losses = [model.train_step(toks) for _ in range(steps)]
-    if on_card:
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / steps
-    else:
-        ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms, losses = time_calls(lambda: model.train_step(toks), steps, dev)
     after = counts()
     n = param_count(model)
     rec = {
@@ -225,19 +212,8 @@ def profile(model, toks, steps: int = 2, top: int = 12):
     """The card's kernel time per step by ``group`` (``torch.profiler``),
     the ``top`` kernels by time with their groups, and the busy share of
     the host-timed window."""
-    wall_ms, by_name, _ = kernel_ms_by_group(
-        lambda: model.train_step(toks), steps, lambda name: name,
-        model.device)
-    groups = {}
-    for name, ms in by_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
-    busy = sum(groups.values())
-    return {"wall_ms_per_step": wall_ms, "busy_ms_per_step": busy,
-            "busy_share": busy / wall_ms,
-            "ms_per_step_by_group": dict(sorted(groups.items(),
-                                                key=lambda kv: -kv[1])),
-            "top_kernels": [(name[:120], group(name), ms) for name, ms in
-                            list(by_name.items())[:top]]}
+    return breakdown(lambda: model.train_step(toks), steps, group,
+                     model.device, top)
 
 
 def main(argv=None):

@@ -595,6 +595,17 @@ def allreduce_arm(count: int, n: int) -> str:
     return "hop_rs_ag"
 
 
+def allreduce_launches(count: int, n: int) -> dict:
+    """The launches of one ``allreduce_sum`` of ``count`` elements per rank
+    over ``n`` ranks (one ring), by kernel: the butterfly's log2(n) hops,
+    the fused ring's one launch, or the 2(n-1) hops of reduce-scatter and
+    all-gather."""
+    arm = allreduce_arm(count, n)
+    hops = {"identity": 0, "fused_ring": 0, "hop_rs_ag": 2 * (n - 1),
+            "butterfly": max(n - 1, 0).bit_length()}[arm]
+    return {"hop": hops, "fused_ring": int(arm == "fused_ring")}
+
+
 def _allreduce_sum_impl(x, comm):
     n = comm.size()
     lead = comm.layout_shape

@@ -2,7 +2,8 @@
 
 The counterpart of ``mpi4jax_tpu/ops/allreduce.py``.  On the mesh tier SUM
 runs on the hop and fused-ring kernels (``_collectives.allreduce_sum``) and
-is differentiable; the other ops follow ``_mesh_impl.allreduce``.  On the
+is differentiable; the other ops follow ``_mesh_impl.allreduce``;
+``compression="int8"`` takes the quantized schedule of ``quantized.py``.  On the
 world tier (a ``WorldComm``, one process per rank) the port carries the
 f32 SUM with a forced ``algo=`` (``_world_impl.allreduce_sum``), whose
 hierarchical schedules run their intra-island leg on the card.
@@ -31,8 +32,10 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
     and ``compression=`` are checked as in the JAX package: an unknown
     value raises ``ValueError``.  A valid ``algo=`` forces a world-tier
     schedule and raises ``NotImplementedError`` on the mesh tier, as
-    there; ``compression="int8"`` raises ``NotImplementedError`` until the
-    quantized allreduce is ported (ROADMAP.md).  So does ``token=``.
+    there; ``compression="int8"`` with ``op=SUM`` runs the quantized
+    schedule (``quantized.quantized_allreduce_sum``: one alltoall and one
+    all-gather of int8 rows), and with another op raises
+    ``NotImplementedError``.  So does ``token=``.
 
     On a world comm ``x`` is this rank's tensor, on the comm's device, and
     ``algo=`` is one of ring, rd, tree, hring and htree.  Every other op,
@@ -51,13 +54,12 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
             "algo= forces a WORLD-tier transport schedule; the mesh tier "
             "has its own dispatch", op="allreduce", comm=comm, x=x,
             exc=NotImplementedError)
+    _validation.check_no_token("allreduce", token, comm, x)
     if compression is not None:
         _check_compression(compression, op, comm, x)
-        _validation.fail(
-            "compression='int8' on a mesh comm is not ported yet (the "
-            "quantized mesh allreduce is queued in ROADMAP.md)",
-            op="allreduce", comm=comm, x=x, exc=NotImplementedError)
-    _validation.check_no_token("allreduce", token, comm, x)
+        from .quantized import quantized_allreduce_sum
+
+        return quantized_allreduce_sum(x, comm)
     _validation.check_reduce_dtype("allreduce", op, x, comm)
     return _mesh_impl.allreduce(x, op, comm)
 

@@ -1,0 +1,138 @@
+"""Data parallelism: gradient synchronization by SUM allreduce.
+
+The counterpart of ``mpi4jax_tpu/parallel/dp.py``.  Parameters and
+gradients are trees (dicts, lists, tuples, named tuples, ``None``) of
+tensors with the mesh's rank dimensions leading.  Every rank keeps its own
+replica of each parameter, so autograd gives each rank its own gradient;
+the sync then adds the ranks' gradients through the allreduce (the hop
+and fused-ring kernels on the card).  A weight shared by the ranks would
+let autograd add them itself and skip the collective.
+
+``dp.elastic_step_fn`` waits for the port's ``elastic/`` (ROADMAP.md §1
+item 7).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..ops import SUM, allreduce
+from ..utils import config
+from ..utils import tree as _tree
+
+
+def _resolve(comm):
+    if comm is None:
+        from .mesh import get_default_comm
+
+        comm = get_default_comm()
+    return comm
+
+
+def pmean(x, *, comm=None):
+    """Mean over the ranks (differentiable: a SUM allreduce over the size;
+    an integer tensor comes back as a float one, as in the JAX package)."""
+    comm = _resolve(comm)
+    return allreduce(x, op=SUM, comm=comm) / comm.size()
+
+
+def _resolve_bucket_bytes(bucket_bytes):
+    """``bucket_bytes``, else 0 unless ``MPI4JAX_TPU_PLAN_BUCKET_KB`` is
+    set, else its value (1 MiB when set but blank): the JAX package's
+    rule."""
+    if bucket_bytes is not None:
+        return int(bucket_bytes)
+    if os.environ.get("MPI4JAX_TPU_PLAN_BUCKET_KB") is None:
+        return 0
+    return config.plan_bucket_bytes()
+
+
+def sync_gradients(grads, *, comm=None, bucket_bytes=None):
+    """Allreduce-mean every leaf of a gradient tree.
+
+    By default one allreduce per leaf.  With ``bucket_bytes`` > 0, or
+    whenever ``MPI4JAX_TPU_PLAN_BUCKET_KB`` is set in the environment,
+    adjacent leaves of one dtype (in ``jax.tree.flatten``'s order: dict keys
+    sorted, ``None`` dropped) are joined into buckets of up to that many
+    bytes per rank and synced by one allreduce each; a leaf larger than the
+    bucket goes alone, and a change of dtype starts a new bucket.
+
+    Bucketed and per-leaf results are equal up to the order in which the
+    ranks' values are added, and not bit for bit in the port: the
+    allreduce picks its arm on the per-rank element count, so a small leaf
+    alone takes the butterfly while the bucket holding it may take the
+    fused ring, which adds the ranks in the ring's order.  (The JAX package
+    says its two paths are identical: XLA's ``psum`` adds in one order at
+    every size.)
+    """
+    bucket_bytes = _resolve_bucket_bytes(bucket_bytes)
+    if bucket_bytes <= 0:
+        return _tree.tree_map(lambda g: pmean(g, comm=comm), grads)
+    comm = _resolve(comm)
+    lead = comm.layout_shape
+    nranks = comm.nranks
+    leaves, treedef = _tree.flatten(grads)
+
+    synced = [None] * len(leaves)
+    bucket = []          # (leaf index, the leaf flattened per rank)
+    bucket_nbytes = 0
+
+    def flush():
+        nonlocal bucket, bucket_nbytes
+        if not bucket:
+            return
+        if len(bucket) == 1:
+            i, flat = bucket[0]
+            synced[i] = pmean(flat, comm=comm)
+        else:
+            red = pmean(torch.cat([flat for _, flat in bucket], -1),
+                        comm=comm)
+            off = 0
+            for i, flat in bucket:
+                synced[i] = red[..., off:off + flat.shape[-1]]
+                off += flat.shape[-1]
+        bucket, bucket_nbytes = [], 0
+
+    prev_dtype = None
+    for i, leaf in enumerate(leaves):
+        nbytes = leaf.numel() // nranks * leaf.element_size()
+        oversize = nbytes > bucket_bytes
+        if (leaf.dtype != prev_dtype or oversize
+                or bucket_nbytes + nbytes > bucket_bytes):
+            flush()
+        if oversize:
+            synced[i] = pmean(leaf, comm=comm)
+        else:
+            bucket.append((i, leaf.reshape(*lead, -1)))
+            bucket_nbytes += nbytes
+        prev_dtype = leaf.dtype
+    flush()
+    # the flat slices back to their shapes, with no cast: pmean's
+    # promotion (int mean -> float) must match the per-leaf path
+    synced = [s.reshape(leaf.shape) for s, leaf in zip(synced, leaves)]
+    return _tree.unflatten(treedef, synced)
+
+
+def value_and_synced_grad(loss_fn, *, comm=None):
+    """The value and the DP-synced gradient of a per-rank loss.
+
+    ``loss_fn(params, *batch)`` returns each rank's loss on its own shard,
+    a tensor of the mesh's rank dimensions; ``params`` is a tree of
+    tensors that require grad, one replica per rank.  The returned function
+    gives the mean loss over the ranks (per rank) and the allreduce-mean
+    gradient tree (``None`` where ``params`` has ``None``).  Every rank's
+    loss is seeded with 1, as each shard's ``jax.value_and_grad`` is.
+    """
+
+    def wrapped(params, *batch):
+        loss = loss_fn(params, *batch)
+        leaves, treedef = _tree.flatten(params)
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        synced = sync_gradients(_tree.unflatten(treedef, grads), comm=comm)
+        return pmean(loss.detach(), comm=comm), synced
+
+    return wrapped

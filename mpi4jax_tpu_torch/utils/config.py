@@ -11,7 +11,9 @@ typo silently changes routing or numerics.
 - ``MPI4JAX_TPU_HIER``: allow | deny | force (the hierarchical schedules);
 - ``MPI4JAX_TPU_ICI_LEG``: auto | off | force (the intra-island leg on the
   card, ``topo/_ici_leg.py``);
-- ``MPI4JAX_TPU_FAKE_HOSTS``: the virtual host partition of one machine.
+- ``MPI4JAX_TPU_FAKE_HOSTS``: the virtual host partition of one machine;
+- ``MPI4JAX_TPU_PLAN_BUCKET_KB``: the gradient bucket of
+  ``parallel/dp.py``, in KiB.
 
 Plan execution (``MPI4JAX_TPU_PLAN``) is not ported; the port treats it as
 off.
@@ -62,3 +64,17 @@ def fake_hosts_spec() -> Optional[str]:
     """The raw ``MPI4JAX_TPU_FAKE_HOSTS`` spec, or None."""
     raw = os.environ.get("MPI4JAX_TPU_FAKE_HOSTS")
     return raw if raw and raw.strip() else None
+
+
+def plan_bucket_bytes() -> int:
+    """``MPI4JAX_TPU_PLAN_BUCKET_KB`` in bytes (default 1 MiB; 0 disables
+    gradient bucketing; a negative value counts as 0)."""
+    raw = os.environ.get("MPI4JAX_TPU_PLAN_BUCKET_KB")
+    if raw is None or not raw.strip():
+        return 1 << 20
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"cannot parse MPI4JAX_TPU_PLAN_BUCKET_KB={raw!r} as KB")
+    return max(0, v) * 1024

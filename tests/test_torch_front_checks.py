@@ -64,13 +64,17 @@ def test_front_raises_as_jax(front, kw, word):
 
 
 def test_int8_on_the_mesh_is_not_ported():
-    """A valid compression the mesh tier cannot take yet raises
-    ``NotImplementedError`` (the JAX package runs it: ROADMAP.md §1 item
-    3), after the checks that come before it in the JAX front."""
+    """``compression="int8"`` on a mesh comm: the SUM allreduce runs the
+    quantized schedule, as the JAX front does (ones quantize to code 127
+    and come back within a quantization step of the exact sum), a non-SUM
+    op raises ``NotImplementedError``, and the alltoall refuses it as the
+    JAX mesh front does."""
     comm = mt.make_mesh(N, device="cpu")
     x = torch.ones(N, N, 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mt.allreduce(x, comm=comm, compression="int8")
+    out = mt.allreduce(x, comm=comm, compression="int8")
+    assert out.dtype == x.dtype and out.shape == x.shape
+    torch.testing.assert_close(out, torch.full_like(x, N), rtol=0,
+                               atol=N / 127)
     with pytest.raises(NotImplementedError, match="op=SUM"):
         mt.allreduce(x, mt.MAX, comm=comm, compression="int8")
     with pytest.raises(NotImplementedError, match="compression"):

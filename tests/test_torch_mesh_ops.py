@@ -311,8 +311,10 @@ def test_token_and_compression_raise():
     x = torch.ones(2, 3)
     with pytest.raises(NotImplementedError, match="token"):
         mt.allreduce(x, comm=comm, token=torch.zeros(()))
+    with pytest.raises(ValueError, match="compression"):
+        mt.allreduce(x, comm=comm, compression="fp8")
     with pytest.raises(NotImplementedError, match="compression"):
-        mt.allreduce(x, comm=comm, compression="int8")
+        mt.alltoall(torch.ones(2, 2, 3), comm=comm, compression="int8")
     for fn in (mt.allgather, mt.scan):
         with pytest.raises(NotImplementedError, match="token"):
             fn(x, comm=comm, token=torch.zeros(()))

@@ -179,5 +179,11 @@ def test_cli_on_the_cpu(capsys):
     assert rec["mesh"] == [1, 2, 2] and rec["device"] == "cpu"
     # the first step, then the two timed ones
     assert len(rec["losses"]) == 3 and all(np.isfinite(rec["losses"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gpt.main(["--device", "cpu", "--pp", "2"])
+    # --pp runs the pipeline-parallel GPT (tests/test_torch_pp_transformer.py
+    # holds it to the JAX package's)
+    train_gpt.main(["--device", "cpu", "--pp", "2", "--steps", "1",
+                    "--d-model", "16", "--layers", "2", "--heads", "4",
+                    "--seq", "16", "--batch", "2", "--json"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["pp"] == 2 and rec["device"] == "cpu"
+    assert len(rec["losses"]) == 2 and all(np.isfinite(rec["losses"]))
