@@ -182,12 +182,36 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    backward), and ``allreduce(compression="int8")`` at 16 and 64 MiB per
    rank (one alltoall and 3 hops a call) beside the exact allreduce, with
    its errors within the JAX package's test criteria; each bit for bit
-   against the plain route and timed.
+   against the plain route and timed;
+28. the world tier's ops (``mpi4jax_tpu_torch.benchmarks.world_ops``), 4
+   ranks on the card through ``runtime.launch -n 4 --fake-hosts
+   'r0,r1|r2,r3'`` (one process each; CUDA tensors staged through pinned
+   host memory): every op of the dtype sweep (f32, f64, f16, bf16,
+   complex64, int32, int64, uint8, bool) with every reduce op it admits,
+   the reductions and an allgather in the other six wire dtypes,
+   the f32 SUM under the default table's pick and forced ring, rd, tree,
+   hring and htree bit for bit against ``topo/_simulate.py`` (with
+   ``MPI4JAX_TPU_ICI_LEG=off``: the transport's own hierarchical
+   schedules; phase 24's path (g) holds the intra-island leg), int8 on
+   qring and qrd bit for bit against their simulators and on the Python
+   schedule against its oracle, status, wildcards, walls and self-wrap,
+   the gradients and the refusals, split and dup, and an allreduce and a
+   ``neighbor_exchange`` queued right behind a long matrix product on the
+   same stream, each rank against its oracles;
+29. path (k): the world-tier solver (``benchmarks.sw_world``,
+   ``WorldShallowWater``) on a 2x2 grid of world ranks, one process each
+   on the one card, at 1800x3600 for 0.1 model day (the Euler step, a
+   warm-up, then 431 timed steps, each rank's stream synchronized): s per
+   0.1 day, the share of a step inside ``neighbor_exchange`` (staging and
+   transport; the median over 20 instrumented steps), and rank 0's
+   gathered h, u and v within
+   ``_sw_check.CHECK_TOL`` of each field's scale from path (a)'s plain
+   route (phase 10), and whether bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-27 on the CPU through the plain versions at a small size and prints
+23-29 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -199,6 +223,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -215,6 +240,8 @@ from mpi4jax_tpu_torch.benchmarks import pp_step as pp_bench
 from mpi4jax_tpu_torch.benchmarks import resnet_step as resnet_bench
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
 from mpi4jax_tpu_torch.benchmarks import spectral as spectral_bench
+from mpi4jax_tpu_torch.benchmarks import sw_world
+from mpi4jax_tpu_torch.benchmarks import world_ops
 from mpi4jax_tpu_torch.models import _sw_check as chk
 from mpi4jax_tpu_torch.models import _sw_kernel as kernel
 from mpi4jax_tpu_torch.models import resnet
@@ -291,6 +318,7 @@ H_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
               4: {"hop": 208, "fused_ring": 52}}
 I_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
               4: {"hop": 19, "fused_ring": 2}}
+WORLD_RANKS = 4  # phase 28
 
 
 def log(msg=""):
@@ -759,7 +787,9 @@ def path_a(shape, dev, ref_1x1, on_card, reps):
             f"({share:.3f}), {calls} exchanges per step")
     return dict(model=model, secs=secs, launches=launches,
                 hops_per_step=timed_hops / timed, d1x1=d1, drift=drift,
-                halo_share=share, twin_secs=twin_secs, times=times)
+                halo_share=share, twin_secs=twin_secs, times=times,
+                plain={k: model.interior(getattr(twin, k)) for k in "huv"},
+                initial={k: model.interior(getattr(s0, k)) for k in "huv"})
 
 
 def check_alltoall(dev, on_card):
@@ -1777,6 +1807,84 @@ def path_j(dev, on_card, card):
     return {"ulysses": u, "moe": m, "int8": q}
 
 
+def path_world_ops(dev):
+    """Phase 28: ``benchmarks/world_ops.py`` on 4 ranks on 'r0,r1|r2,r3'
+    (a TCP world: the forced schedules and qring/qrd really run), each rank
+    holding every op on its tensors to its oracle, an allreduce and a
+    neighbor_exchange queued right behind a long matrix product among
+    them (the job fails otherwise).  The job runs with
+    ``MPI4JAX_TPU_ICI_LEG=off``, so its forced hring/htree are the
+    transport's own schedules; phase 24 holds the intra-island leg."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="world_ops_") as tmp:
+        t0 = time.perf_counter()
+        rec = world_ops.run_job(WORLD_RANKS, tmp, device=str(dev),
+                                fake_hosts=ici_leg.FAKE_HOSTS, timeout=300)
+        secs = time.perf_counter() - t0
+        results = world_ops.load_results(tmp, WORLD_RANKS)
+    if rec["device"] != str(dev) or not rec["multi"] or rec["arena"]:
+        fail(f"phase 28: the job ran as {rec}")
+    for r, res in enumerate(results):
+        if set(res) != set(rec["ops"]):
+            fail(f"phase 28: rank {r} wrote {len(res)} results, expected "
+                 f"{len(rec['ops'])}")
+    log(f"  {WORLD_RANKS} ranks on {rec['device']}, islands "
+        f"{rec['islands']}: {rec['checks_per_rank']} checks per rank held "
+        f"({len(rec['ops'])} ops over "
+        f"{len(world_ops.DTYPES) + len(world_ops.OTHER_DTYPES)} dtypes, "
+        f"forced ring/rd/tree/hring/htree, int8 qring/qrd and the Python "
+        f"schedule, status, wildcards, neighbours, gradients, split/dup, "
+        f"ops behind a kernel); rank 0 {rec['seconds']:.2f} s, job "
+        f"{secs:.1f} s; worst float error over its tolerance scale "
+        f"{max(rec['worst_rel'].values()):.3e}")
+    return dict(rec, job_seconds=secs)
+
+
+def path_k(dev, a, shape, card):
+    """Phase 29: path (k), the world-tier solver on a 2x2 grid of world
+    ranks (one process each, all on the one card) for 0.1 model day,
+    timed, its gathered h, u and v held to path (a)'s plain route within
+    ``CHECK_TOL`` of each field's scale (the largest change path (a) made
+    to it)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="path_k_") as tmp:
+        t0 = time.perf_counter()
+        rec, fields = sw_world.run_job([(GRID, shape)], tmp, days=DAYS,
+                                       device=str(dev), timeout=600)[GRID]
+        secs = time.perf_counter() - t0
+    worst, bits = 0.0, True
+    for k in "huv":
+        got, want = fields[k], a["plain"][k]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"path (k): {k} has shape {got.shape} or is not finite")
+        scale = float(np.abs(want - a["initial"][k]).max())
+        err = float(np.abs(got - want).max())
+        bits &= bool(np.array_equal(got, want))
+        worst = max(worst, err / scale)
+        log(f"  {k}: max |k - a| {err:.3e}, {err / scale:.3e} of its scale "
+            f"{scale:.3e}")
+    if not worst <= chk.CHECK_TOL:
+        fail(f"path (k): {worst:.3e} of a field's scale from path (a)'s "
+             f"plain route (tolerance {chk.CHECK_TOL})")
+    if not rec["mass_drift"] < 1e-5:
+        fail(f"path (k): mass drifted by {rec['mass_drift']:.3e}")
+    log(f"  {GRID[0]}x{GRID[1]} world ranks at {tuple(shape)}: "
+        f"{rec['steps']} timed steps in {rec['seconds']:.4f} s "
+        f"({rec['ms_per_step']:.4f} ms/step; path (a) {a['secs']:.4f} s), "
+        f"halo share {rec['halo_share']:.3f} (largest rank "
+        f"{rec['halo_share_max']:.3f}; medians of {rec['halo_steps']} "
+        f"instrumented steps: {rec['halo_ms_per_step']:.4f} of "
+        f"{rec['instrumented_ms_per_step']:.4f} ms), "
+        f"{rec['neighbor_exchanges_per_step']:.0f} neighbor_exchange calls "
+        f"a step; mass drift {rec['mass_drift']:.2e}; within "
+        f"{worst:.3e} of path (a)'s plain route (tolerance "
+        f"{chk.CHECK_TOL}), bit for bit: {bits}; job {secs:.1f} s [{card}]")
+    return dict(rec, worst_over_scale=worst, bit_for_bit=bits,
+                job_seconds=secs)
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -1843,7 +1951,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-27 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-29 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -1989,6 +2097,12 @@ def main(argv=None):
     log(f"phase 27: path (j), Ulysses attention, moe_ffn and the int8 "
         f"allreduce at n = 4 [{card}]")
     j_runs = path_j(dev, on_card, card)
+    log(f"phase 28: the world ops on {WORLD_RANKS} ranks on "
+        f"{ici_leg.FAKE_HOSTS}, one process each [{card}]")
+    path_world_ops(dev)
+    log(f"phase 29: path (k), the world-tier solver on {GRID[0]}x{GRID[1]} "
+        f"world ranks, {DAYS} day at {shape} [{card}]")
+    path_k(dev, a, shape, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:

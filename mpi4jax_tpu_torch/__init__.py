@@ -36,11 +36,20 @@ Ported so far:
 - the pipeline-parallel GPT (``models/pp_transformer.py``, the CLI's
   ``--pp``) and the data-parallel ResNet (``models/resnet.py``) with its
   CLI (``examples/train_resnet.py``);
-- the world tier as far as the hierarchical f32 allreduce
-  (``runtime/``: the launcher, ``WorldComm`` and the native transport's
-  binding; ``topo/``: discovery, the simulators and the intra-island leg,
-  which folds each island with the fused ring kernel and packs the
-  quantized wire frame with ``csrc/quant_pack.cu``).
+- the world tier, one process per rank (``runtime/``: the launcher,
+  ``WorldComm`` with ``split`` and ``dup``, and the native transport's
+  binding; ``tune``: the default decision table that ``algo=None``
+  resolves against): every op of the twelve and ``neighbor_exchange`` on
+  this rank's tensor, staged through pinned host memory when it lives on
+  the card (``ops/_world_impl.py``), with every reduce op and custom op,
+  the 15 dtypes, forced ``algo=`` schedules, ``compression="int8"`` on
+  the transport's qring/qrd, ``Status``, ``ANY_TAG`` and ``ANY_SOURCE``;
+  ``topo/``: discovery, the simulators and the hierarchical allreduce's
+  intra-island leg, which folds each island with the fused ring kernel
+  and packs the quantized wire frame with ``csrc/quant_pack.cu``;
+- the world-tier shallow-water solver
+  (``models/shallow_water_world.py``): a rank per block, its halos on
+  ``neighbor_exchange``.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.
@@ -79,6 +88,8 @@ from .parallel.grid import ProcessGrid
 from .parallel.halo import halo_exchange
 from .parallel.mesh import MeshComm, get_default_comm, make_mesh, spmd
 from .parallel.ring import ring_attention
+from .runtime.transport import WorldComm
+from .utils.status import ANY_SOURCE, ANY_TAG, Status
 
 __version__ = "0.3.0"
 
@@ -89,6 +100,7 @@ __all__ = [
     "allreduce", "allgather", "alltoall", "bcast", "reduce", "gather",
     "scatter", "scan", "sendrecv", "barrier", "send", "recv",
     "neighbor_exchange",
+    "WorldComm", "Status", "ANY_SOURCE", "ANY_TAG",
     "ReduceOp", "custom_op", "ALL_OPS",
     "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR",
     "__version__",

@@ -67,7 +67,7 @@ def fft3(x, *, comm=None):
     """3-D FFT of an X-slab field ``(*lead, X/n, Y, Z)``, real or complex:
     the complex64 (complex128 for complex128 input) spectrum
     ``(*lead, X, Y/n, Z)``, Y-slabs."""
-    comm = _validation.resolve_comm(comm)
+    comm = _validation.resolve_comm(comm, mesh_only="the slab FFT")
     x = torch.fft.fftn(_complex(x), dim=(-2, -1))  # local Y, Z transforms
     x = _transpose_x_to_y(x, comm)                   # one alltoall
     return torch.fft.fft(x, dim=len(comm.layout))    # the now-local X
@@ -75,7 +75,7 @@ def fft3(x, *, comm=None):
 
 def ifft3(x, *, comm=None):
     """The inverse of :func:`fft3`: Y-slab spectrum to X-slab field."""
-    comm = _validation.resolve_comm(comm)
+    comm = _validation.resolve_comm(comm, mesh_only="the slab FFT")
     x = torch.fft.ifft(x, dim=len(comm.layout))
     x = _transpose_y_to_x(x, comm)
     return torch.fft.ifftn(x, dim=(-2, -1))
@@ -94,7 +94,7 @@ def poisson_solve(f, *, comm=None, shape, lengths=(2 * np.pi,) * 3):
     ``f``: the real X-slab field ``(*lead, X/n, Y, Z)``.  Returns the
     zero-mean solution, float32, with the same layout.
     """
-    comm = _validation.resolve_comm(comm)
+    comm = _validation.resolve_comm(comm, mesh_only="the slab FFT")
     nx, ny, nz = shape
     lx, ly, lz = lengths
     size = comm.size()

@@ -1,10 +1,9 @@
 """The twelve MPI-style ops on the mesh tier, and ``neighbor_exchange``.
 
-Every op runs on the mesh tier (``_mesh_impl.py``).  send, recv and
-neighbor_exchange belong to the world tier: on a mesh comm they raise, as
-the JAX package's do.  On a world comm only ``allreduce`` (f32 SUM with a
-forced ``algo=``, ``_world_impl.py``) is ported; the other ops raise
-``NotImplementedError``.
+Every op runs on the mesh tier (``_mesh_impl.py``) and on the world tier
+(``_world_impl.py``, one process per rank over the native transport).
+send, recv and neighbor_exchange belong to the world tier: on a mesh comm
+they raise, as the JAX package's do.
 """
 
 from .allgather import allgather

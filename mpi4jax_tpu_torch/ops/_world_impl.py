@@ -1,48 +1,361 @@
-"""The world tier's allreduce on eager torch tensors.
+"""The world tier's ops on eager torch tensors: one process per rank.
 
-The counterpart of the allreduce of ``mpi4jax_tpu/ops/_world_impl.py``:
-one process per rank, the native transport between them.  A CUDA tensor
-is synchronized (the copy to the host waits for the work queued before
-it), copied into pinned host memory, reduced by ``bridge.allreduce_raw``
-with its forced algorithm code, and copied back to the card; program
-order on the one stream is the ordering contract.  The transport's
-hierarchical schedules run the intra-island leg on the card
-(``topo/_ici_leg.py``).
+The counterpart of ``mpi4jax_tpu/ops/_world_impl.py``, whose ops are host
+callbacks into the native transport.  Here each op is a staged function:
 
-The gradient of an allreduce-SUM is the identity on the cotangent, as the
-reference's transposed pass (``allreduce.py:87-89`` there).
+- **staging.**  A CUDA tensor is copied into pinned host memory; the copy
+  waits for the work queued on the current stream (this rank's stream, not
+  the device), so an op queued behind a kernel sees the kernel's result.
+  The native call runs on the host buffers (``runtime/bridge.py``), and the
+  result is copied back to ``comm.device`` from pinned memory without
+  waiting (the stream orders it before later work).  A CPU tensor crosses
+  as it is.  The input is never written.  The fronts have checked that
+  every tensor is on ``comm.device``: nothing moves quietly between
+  devices.  bf16 crosses as its int16 bits with wire code 10
+  (``utils/dtypes.py``), so the transport reduces real bf16.
+- **custom reduce ops** ride the allgather (the gather for ``reduce``) and
+  a local fold, as ``:1664-1700`` there: the wire carries no user code.
+- **gradients**, as the JAX package's rules (``:1518-1599`` there): the
+  SUM allreduce passes the cotangent unchanged; a non-SUM allreduce's
+  backward raises ("differentiable for SUM only"); ``sendrecv`` sends the
+  cotangent back along the edge, source and destination swapped and the
+  tags with them (a wildcard receive tag keeps the own send tag and
+  accepts any); every other op is an ``autograd.Function`` whose backward
+  raises ``NotImplementedError``, where ``jax.grad`` raises for want of a
+  rule.  Nothing is detached silently.
+
+Program order is the ordering contract: every rank calls the ops of a comm
+in the same order, as in the JAX package's ordered effects.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+
 import torch
 
 from ..runtime import bridge
-from ..utils import algos
+from ..utils import dtypes as _dtypes
+from ..utils.algos import ALGO_CODES
+from ..utils.status import ANY_TAG
+from .reduce_ops import OP_CODES, ReduceOp
+
+# ---------------- staging ----------------
 
 
-def _staged(x: torch.Tensor, comm, code: int) -> torch.Tensor:
-    flat = x.detach().reshape(-1)
-    pin = flat.device.type == "cuda"
-    send = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=pin)
-    send.copy_(flat)  # from the card: waits for the stream
-    recv = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=pin)
-    bridge.allreduce_raw(comm.handle, send.numpy(), recv.numpy(),
-                         bridge.F32, bridge.SUM, algo=code)
-    return recv.to(x.device).reshape(x.shape)
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values in contiguous host memory: for a CUDA tensor a pinned
+    copy made after the work queued on its stream; a CPU tensor itself
+    when contiguous (the transport does not write a send buffer)."""
+    x = x.detach()
+    if x.device.type != "cuda":
+        return x.contiguous()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)  # waits for this rank's stream, not the device
+    return host
+
+
+def _host_empty(shape, dtype, comm) -> torch.Tensor:
+    """A result buffer in host memory, pinned when the comm is on a card."""
+    return torch.empty(tuple(shape), dtype=dtype,
+                       pin_memory=comm.device.type == "cuda")
+
+
+def _to_device(host: torch.Tensor, comm) -> torch.Tensor:
+    """A host result on ``comm.device``; the copy from pinned memory does
+    not wait (the caching host allocator keeps the block until the copy is
+    done)."""
+    if comm.device.type != "cuda":
+        return host
+    return host.to(comm.device, non_blocking=True)
+
+
+_np = _dtypes.host_view
+
+
+def _code(t: torch.Tensor) -> int:
+    return _dtypes.wire_code(t.dtype)
+
+
+def _algo_code(algo) -> int:
+    return ALGO_CODES[algo] if algo is not None else 0
+
+
+# ---------------- the staged ops (no autograd) ----------------
+
+
+def _allreduce(x, comm, op_code: int, algo=None):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.allreduce_raw(comm.handle, _np(send), _np(out), _code(send),
+                         op_code, algo=_algo_code(algo))
+    return _to_device(out, comm)
+
+
+def _allgather(x, comm):
+    send = _to_host(x)
+    out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype, comm)
+    bridge.allgather_raw(comm.handle, _np(send), _np(out))
+    return _to_device(out, comm)
+
+
+def _gather(x, root, comm):
+    send = _to_host(x)
+    if comm.rank() != root:
+        bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank())
+        return x.detach().clone()  # the non-root result is its input
+    out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype, comm)
+    bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank(),
+                  out=_np(out))
+    return _to_device(out, comm)
+
+
+def _reduce(x, op_code, root, comm):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.reduce(comm.handle, _np(send), op_code, root, out=_np(out),
+                  dtype_code=_code(send))
+    if comm.rank() != root:
+        return x.detach().clone()  # the transport hands the input back
+    return _to_device(out, comm)
+
+
+def _scan(x, op_code, comm):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.scan(comm.handle, _np(send), op_code, out=_np(out),
+                dtype_code=_code(send))
+    return _to_device(out, comm)
+
+
+def _bcast(x, root, comm):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.bcast(comm.handle, _np(send), root, out=_np(out))
+    return _to_device(out, comm)
+
+
+def _scatter(x, root, comm):
+    send = _to_host(x)
+    out = _host_empty(send.shape[1:], send.dtype, comm)
+    bridge.scatter(comm.handle, _np(send), root, out=_np(out))
+    return _to_device(out, comm)
+
+
+def _alltoall(x, comm, algo=None):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.alltoall(comm.handle, _np(send), out=_np(out),
+                    algo=_algo_code(algo), dtype_code=_code(send))
+    return _to_device(out, comm)
+
+
+def _shift2(stack, lo, hi, tag, comm):
+    send = _to_host(stack)
+    out = _host_empty(send.shape, send.dtype, comm)
+    bridge.shift2(comm.handle, _np(send), lo, hi, tag, out=_np(out))
+    return _to_device(out, comm)
+
+
+def _recv(x, source, tag, comm, status):
+    out = _host_empty(x.shape, x.dtype, comm)
+    if status is None:
+        # strict: the arrived size must equal the buffer exactly
+        bridge.recv(comm.handle, _np(out), source, tag)
+    else:
+        _, src, tg, cnt = bridge.recv_status(comm.handle, _np(out), source,
+                                             tag)
+        status._fill(src, tg, cnt)
+    return _to_device(out, comm)
+
+
+def _sendrecv(x, source, dest, sendtag, recvtag, status, comm):
+    send = _to_host(x)
+    out = _host_empty(send.shape, send.dtype, comm)
+    if status is None and sendtag == recvtag:
+        bridge.sendrecv(comm.handle, _np(send), _np(out), source, dest,
+                        sendtag)
+        return _to_device(out, comm)
+    _, src, tg, cnt = bridge.sendrecv_status(
+        comm.handle, _np(send), _np(out), source, dest, sendtag, recvtag)
+    if status is None:
+        # no status to report a short message through: the strict
+        # exact-size contract of the plain path (``:1139-1152`` there)
+        if cnt != out.numel() * out.element_size():
+            print(f"tpucomm_Sendrecv: size mismatch from rank {source}: "
+                  f"expected {out.numel() * out.element_size()} bytes, got "
+                  f"{cnt}", file=sys.stderr, flush=True)
+            os._exit(1)
+    else:
+        status._fill(src, tg, cnt)
+    return _to_device(out, comm)
+
+
+# ---------------- autograd ----------------
 
 
 class _AllreduceSum(torch.autograd.Function):
+    """The SUM allreduce: its transposed pass is the identity on the
+    cotangent (``:1543-1550`` there)."""
+
     @staticmethod
-    def forward(ctx, x, comm, code):
-        return _staged(x, comm, code)
+    def forward(ctx, x, comm, algo):
+        return _allreduce(x, comm, OP_CODES["SUM"], algo)
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None
 
 
-def allreduce_sum(x: torch.Tensor, comm, algo: str) -> torch.Tensor:
-    """The f32 SUM of ``x`` over the world ``comm``'s ranks, with the
-    schedule ``algo`` forced."""
-    return _AllreduceSum.apply(x, comm, algos.ALGO_CODES[algo])
+class _NoGradient(torch.autograd.Function):
+    """A world op whose backward raises, as ``jax.grad`` does where the JAX
+    package registers no rule (``what`` names the op in the message)."""
+
+    @staticmethod
+    def forward(ctx, what, fn, *tensors):
+        ctx.what = what
+        return fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(f"{ctx.what} has no gradient on the world "
+                                  "tier, as in the JAX package")
+
+
+def _no_grad_op(what, fn, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _NoGradient.apply(what, fn, *tensors)
+    return fn(*tensors)
+
+
+class _Sendrecv(torch.autograd.Function):
+    """The cotangent goes back along the message edge: source and dest
+    swapped, and the tags with them (``:1576-1595`` there)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, source, dest, sendtag, recvtag, status):
+        ctx.edge = (comm, source, dest, sendtag, recvtag)
+        return _sendrecv(x, source, dest, sendtag, recvtag, status, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, source, dest, sendtag, recvtag = ctx.edge
+        if recvtag == ANY_TAG:
+            t_send, t_recv = sendtag, ANY_TAG
+        else:
+            t_send, t_recv = recvtag, sendtag
+        ct = _sendrecv(g.contiguous(), dest, source, t_send, t_recv, None,
+                       comm)
+        return ct, None, None, None, None, None, None
+
+
+# ---------------- entry points (called from the op fronts) ----------------
+
+
+def allreduce(x, op: ReduceOp, comm, algo=None):
+    """``algo`` forces a schedule for this call (the ``compression="int8"``
+    route passes "qring" or "qrd"); None is the engine's pick from the
+    installed decision table."""
+    if op.custom:
+        # the wire carries no user code: allgather and a local fold
+        return op.reduce(allgather(x, comm)).to(x.dtype)
+    if op.name == "SUM":
+        return _AllreduceSum.apply(x, comm, algo)
+    return _no_grad_op(
+        f"allreduce with op={op.name} (differentiable for SUM only)",
+        lambda t: _allreduce(t, comm, OP_CODES[op.name], algo), x)
+
+
+def reduce(x, op: ReduceOp, root, comm):
+    if op.custom:
+        rows = gather(x, root, comm)
+        if comm.rank() == root:
+            return op.reduce(rows).to(x.dtype)
+        return rows
+    return _no_grad_op("reduce",
+                       lambda t: _reduce(t, OP_CODES[op.name], root, comm), x)
+
+
+def scan(x, op: ReduceOp, comm):
+    if op.custom:
+        rows = allgather(x, comm)
+        return op.reduce(rows[: comm.rank() + 1]).to(x.dtype)
+    return _no_grad_op("scan", lambda t: _scan(t, OP_CODES[op.name], comm), x)
+
+
+def bcast(x, root, comm):
+    return _no_grad_op("bcast", lambda t: _bcast(t, root, comm), x)
+
+
+def allgather(x, comm):
+    return _no_grad_op("allgather", lambda t: _allgather(t, comm), x)
+
+
+def gather(x, root, comm):
+    return _no_grad_op("gather", lambda t: _gather(t, root, comm), x)
+
+
+def scatter(x, root, comm):
+    return _no_grad_op("scatter", lambda t: _scatter(t, root, comm), x)
+
+
+def alltoall(x, comm, algo=None):
+    return _no_grad_op("alltoall", lambda t: _alltoall(t, comm, algo), x)
+
+
+def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm, tag=60):
+    """``(from_lo, from_hi)``: both strips in one ``shift2``; a ``None``
+    neighbour is a wall, where the opposite input passes through, and a
+    self-wrap is a local rotation (in the transport)."""
+    lo_i = -1 if lo is None else int(lo)
+    hi_i = -1 if hi is None else int(hi)
+
+    def run(a, b):
+        return _shift2(torch.stack([a, b]), lo_i, hi_i, int(tag), comm)
+
+    out = _no_grad_op("neighbor_exchange", run, to_lo, to_hi)
+    return out[0], out[1]
+
+
+def barrier(comm):
+    bridge.barrier(comm.handle)
+
+
+def send(x, dest, tag, comm):
+    bridge.send(comm.handle, _np(_to_host(x)), dest, tag)
+
+
+def recv(x, source, tag, comm, status=None):
+    return _no_grad_op("recv", lambda t: _recv(t, source, tag, comm, status),
+                       x)
+
+
+def sendrecv(x, *, comm, source, dest, sendtag, recvtag, status=None):
+    return _Sendrecv.apply(x, comm, source, dest, sendtag, recvtag, status)
+
+
+def resolve_edge(comm, perm, shift, wrap):
+    """Per-rank ``(source, dest)`` from the mesh-style ``perm=`` or
+    ``shift=``, with the JAX world tier's edge errors (``:1840-1860``
+    there)."""
+    rank, size = comm.rank(), comm.size()
+    if shift is not None:
+        dest = (rank + shift) % size if wrap else rank + shift
+        source = (rank - shift) % size if wrap else rank - shift
+        if not (0 <= dest < size) or not (0 <= source < size):
+            raise ValueError(
+                "shift moves past the edge with wrap=False; world-tier "
+                "sendrecv needs a valid partner on every rank — use "
+                "send/recv for edge ranks")
+        return source, dest
+    if perm is not None:
+        src_map = {d: s for s, d in perm}
+        dst_map = {s: d for s, d in perm}
+        if rank not in src_map or rank not in dst_map:
+            raise ValueError(
+                f"perm must cover rank {rank} as both source and dest on "
+                "the world tier; use send/recv for one-sided edges")
+        return src_map[rank], dst_map[rank]
+    raise ValueError("pass source/dest, perm=, or shift=")
+

@@ -4,24 +4,21 @@ The counterpart of ``mpi4jax_tpu/ops/allreduce.py``.  On the mesh tier SUM
 runs on the hop and fused-ring kernels (``_collectives.allreduce_sum``) and
 is differentiable; the other ops follow ``_mesh_impl.allreduce``;
 ``compression="int8"`` takes the quantized schedule of ``quantized.py``.  On the
-world tier (a ``WorldComm``, one process per rank) the port carries the
-f32 SUM with a forced ``algo=`` (``_world_impl.allreduce_sum``), whose
-hierarchical schedules run their intra-island leg on the card.
+world tier (a ``WorldComm``, one process per rank) every op and dtype runs
+through the transport (``_world_impl.allreduce``): ``algo=None`` is the
+engine's pick from the installed decision table (``tune``), a forced
+``algo=`` one schedule, and the hierarchical schedules run their
+intra-island leg on the card.  ``compression="int8"`` takes the
+transport's qring or qrd (``tune.quantized_algorithm``), or the Python
+schedule under ``MPI4JAX_TPU_COLL_QUANT=deny``.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ..utils import algos as _algos
 from ..utils import validation as _validation
 from . import _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
-
-# the forced schedules the world tier carries; qring/qrd (the native
-# route of compression="int8") and the engine's own pick wait for their port
-_WORLD_ALGOS = ("ring", "rd", "tree", "hring", "htree")
-
 
 def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
               algo=None):
@@ -37,14 +34,18 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
     all-gather of int8 rows), and with another op raises
     ``NotImplementedError``.  So does ``token=``.
 
-    On a world comm ``x`` is this rank's tensor, on the comm's device, and
-    ``algo=`` is one of ring, rd, tree, hring and htree.  Every other op,
-    dtype or algorithm, and ``algo=None`` (the tuner's table is not
-    ported), raises ``NotImplementedError`` naming ROADMAP.md.
+    On a world comm ``x`` is this rank's tensor, on the comm's device; any
+    op and supported dtype; ``algo=`` one of auto, ring, rd, tree, qring,
+    qrd, hring and htree (every rank must force the same one; an
+    ineligible pick degrades in the transport as a table row does), or
+    None for the engine's pick.  ``compression="int8"`` with SUM on a real
+    floating dtype runs the transport's quantized schedule, rank-consistent
+    and about 1e-2 off the exact sum.  Only SUM is differentiable: its
+    gradient passes the cotangent unchanged.
     """
     op = as_reduce_op(op)
-    comm = _validation.resolve_comm(comm, world=True)
-    if not hasattr(comm, "axes"):
+    comm = _validation.resolve_comm(comm)
+    if _validation.is_world(comm):
         return _world_allreduce(x, op, comm, token, compression, algo)
     _validation.check_tensor("allreduce", x, comm)
     if algo is not None:
@@ -75,19 +76,10 @@ def _check_compression(compression, op, comm, x):
             op="allreduce", comm=comm, x=x, exc=NotImplementedError)
 
 
-def _not_ported(what, comm, x):
-    _validation.fail(
-        f"{what} on a world comm is not ported yet (ROADMAP.md §1 item 6)",
-        op="allreduce", comm=comm, x=x, exc=NotImplementedError)
-
-
 def _world_allreduce(x, op, comm, token, compression, algo):
     from . import _world_impl
 
-    if not isinstance(x, torch.Tensor):
-        _validation.fail(f"x must be a torch.Tensor, got "
-                         f"{type(x).__qualname__}", op="allreduce",
-                         comm=comm)
+    _validation.check_world_tensor("allreduce", x, comm)
     if algo is not None:
         algo = _algos.check_algo(algo, "allreduce")
         if compression is not None:
@@ -100,21 +92,18 @@ def _world_allreduce(x, op, comm, token, compression, algo):
                 f"custom reduce op {op.name} runs as allgather + local "
                 "fold; there is no allreduce schedule to force",
                 op="allreduce", comm=comm, x=x, exc=ValueError)
-    if compression is not None:
-        _check_compression(compression, op, comm, x)
-        _not_ported("compression='int8' (the native qring/qrd route)",
-                    comm, x)
     _validation.check_no_token("allreduce", token, comm, x)
-    if op.name != "SUM":
-        _not_ported(f"op={op.name}", comm, x)
-    if x.dtype != torch.float32:
-        _not_ported(f"dtype {x.dtype}", comm, x)
-    if algo is None or algo == "auto":
-        _not_ported("the engine's own algorithm pick (algo=None or "
-                    "'auto': the tuner's decision table)", comm, x)
-    if algo not in _WORLD_ALGOS:
-        _not_ported(f"algo={algo!r}", comm, x)
-    if x.device != comm.device:
-        _validation.fail(f"x is on {x.device}, the comm on {comm.device}",
-                         op="allreduce", comm=comm, x=x, exc=ValueError)
-    return _world_impl.allreduce_sum(x, comm, algo)
+    if compression is not None:
+        from .quantized import (check_quantizable, native_quant_algo,
+                                quantized_allreduce_sum_world)
+
+        _check_compression(compression, op, comm, x)
+        check_quantizable(x, comm)
+        _validation.check_wire_dtype("allreduce", x, comm)
+        algo = native_quant_algo(comm, x)
+        if algo is None:  # MPI4JAX_TPU_COLL_QUANT=deny
+            return quantized_allreduce_sum_world(x, comm)
+        return _world_impl.allreduce(x, op, comm, algo=algo)
+    _validation.check_reduce_dtype("allreduce", op, x, comm)
+    _validation.check_wire_dtype("allreduce", x, comm)
+    return _world_impl.allreduce(x, op, comm, algo=algo)

@@ -1,8 +1,9 @@
 """alltoall — transpose chunks across ranks (the FFT-slab move).
 
-The counterpart of ``mpi4jax_tpu/ops/alltoall.py`` on the mesh tier: one
+The counterpart of ``mpi4jax_tpu/ops/alltoall.py``.  On the mesh tier one
 launch of the alltoall kernel (``_collectives.alltoall``), differentiable
-(the op is its own transpose).
+(the op is its own transpose); on the world tier the transport's exact
+pairwise exchange (``_world_impl.alltoall``).
 """
 
 from __future__ import annotations
@@ -11,34 +12,71 @@ from ..utils import algos as _algos
 from ..utils import validation as _validation
 from . import _mesh_impl
 
+_NOT_PORTED = ("on a world comm is not ported: its simulators "
+               "(simulate_qalltoall, halltoall, hqalltoall) wait for "
+               "ROADMAP.md §1 item 6")
+
 
 def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
     """Exchange chunks: rank r's output row ``j`` is rank ``j``'s input row
     ``r``.
 
-    ``x`` is ``(*lead, size, ...)``: the mesh's rank dimensions, then each
-    rank's ``(size, ...)`` buffer.  ``algo=`` and ``compression=`` are
-    checked as in the JAX package: an unknown value raises ``ValueError``,
-    and a valid one raises ``NotImplementedError`` on the mesh tier, as
-    there (both belong to the world-tier transport).  So does ``token=``.
+    On the mesh tier ``x`` is ``(*lead, size, ...)``: the mesh's rank
+    dimensions, then each rank's ``(size, ...)`` buffer; on the world tier
+    this rank's ``(size, ...)`` buffer (another leading size raises
+    ``ValueError``).  ``algo=`` and ``compression=`` are checked as in the
+    JAX package: an unknown value raises ``ValueError``, and a valid one
+    raises ``NotImplementedError`` on the mesh tier, as there (both belong
+    to the world-tier transport).  On the world tier ``algo="ring"`` or
+    ``"auto"`` runs the exact exchange; the quantized and hierarchical
+    schedules and ``compression="int8"`` raise ``NotImplementedError``
+    naming ROADMAP.md.  So does ``token=``.
     """
     comm = _validation.resolve_comm(comm)
-    _validation.check_tensor("alltoall", x, comm)
+    world = _validation.is_world(comm)
+    if world:
+        _validation.check_world_tensor("alltoall", x, comm)
+    else:
+        _validation.check_tensor("alltoall", x, comm)
     if algo is not None:
-        _algos.check_algo(algo, "alltoall")
-        # every comm of the port is a mesh comm
-        _validation.fail(
-            "algo= forces a WORLD-tier transport schedule; the mesh tier "
-            "has one alltoall kernel", op="alltoall", comm=comm, x=x,
-            exc=NotImplementedError)
+        algo = _algos.check_algo(algo, "alltoall")
+        if not world:
+            _validation.fail(
+                "algo= forces a WORLD-tier transport schedule; the mesh "
+                "tier has one alltoall kernel", op="alltoall", comm=comm,
+                x=x, exc=NotImplementedError)
+        if compression is not None:
+            _validation.fail(
+                "compression='int8' selects its own wire format; do not "
+                "combine it with algo=", op="alltoall", comm=comm, x=x,
+                exc=ValueError)
     if compression is not None:
         if compression != "int8":
             _validation.fail(
                 f"unknown compression {compression!r}; supported: 'int8'",
                 op="alltoall", comm=comm, x=x, exc=ValueError)
-        _validation.fail(
-            "compression='int8' rides the world-tier transport wire "
-            "format; the mesh tier has one alltoall kernel",
-            op="alltoall", comm=comm, x=x, exc=NotImplementedError)
+        if not world:
+            _validation.fail(
+                "compression='int8' rides the world-tier transport wire "
+                "format; the mesh tier has one alltoall kernel",
+                op="alltoall", comm=comm, x=x, exc=NotImplementedError)
+        from .quantized import check_quantizable
+
+        check_quantizable(x, comm)
+        _validation.fail(f"compression='int8' {_NOT_PORTED}", op="alltoall",
+                         comm=comm, x=x, exc=NotImplementedError)
     _validation.check_no_token("alltoall", token, comm, x)
-    return _mesh_impl.alltoall(x, comm)
+    if not world:
+        return _mesh_impl.alltoall(x, comm)
+    from . import _world_impl
+
+    if algo in _algos.A2A_ALGOS:
+        _validation.fail(f"algo={algo!r} {_NOT_PORTED}", op="alltoall",
+                         comm=comm, x=x, exc=NotImplementedError)
+    _validation.check_wire_dtype("alltoall", x, comm)
+    if x.dim() < 1 or x.shape[0] != comm.size():
+        _validation.fail(
+            f"alltoall requires leading axis == communicator size "
+            f"({comm.size()})", op="alltoall", comm=comm, x=x,
+            exc=ValueError)
+    return _world_impl.alltoall(x, comm, algo=algo)

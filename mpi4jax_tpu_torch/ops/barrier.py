@@ -1,9 +1,11 @@
 """barrier — synchronize all ranks.
 
-The counterpart of ``mpi4jax_tpu/ops/barrier.py`` on the mesh tier.  One
-program on one stream needs no barrier for correctness; the mesh tier runs
-a SUM allreduce of one zero per rank, as the JAX package's cross-rank psum
-dependency does (``_mesh_impl.barrier``).
+The counterpart of ``mpi4jax_tpu/ops/barrier.py``.  One program on one
+stream needs no barrier for correctness; the mesh tier runs a SUM allreduce
+of one zero per rank, as the JAX package's cross-rank psum dependency does
+(``_mesh_impl.barrier``).  On the world tier the transport's barrier: every
+rank blocks until all have reached it (host order; work queued on a card
+before it is not waited for).
 """
 
 from __future__ import annotations
@@ -16,4 +18,9 @@ def barrier(*, comm=None, token=None):
     """Returns ``None``; ``token=`` raises ``NotImplementedError``."""
     comm = _validation.resolve_comm(comm)
     _validation.check_no_token("barrier", token, comm)
+    if _validation.is_world(comm):
+        from . import _world_impl
+
+        _world_impl.barrier(comm)
+        return None
     _mesh_impl.barrier(comm)

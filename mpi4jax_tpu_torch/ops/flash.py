@@ -488,7 +488,7 @@ def check_qkv(q, k, v, comm):
     """The comm (``comm`` or the ambient one), after checking that q, k and
     v are ``(*lead, B, T_local, H, D)`` on its mesh layout, alike, with
     ``T_local >= 1``."""
-    comm = _validation.resolve_comm(comm)
+    comm = _validation.resolve_comm(comm, mesh_only="ring attention")
     lead = comm.layout_shape
     for x in (q, k, v):
         if not isinstance(x, torch.Tensor):

@@ -264,8 +264,8 @@ def _pack_scales(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Each row's f32 scale appended to its int8 codes as its four
     little-endian bytes (``lax.bitcast_convert_type``'s): ``(..., k)`` and
     ``(...)`` to ``(..., k + 4)``."""
-    sbytes = scale.float().contiguous().view(torch.int8)
-    return torch.cat([q, sbytes.reshape(*scale.shape, 4)], -1)
+    sbytes = scale.float().reshape(*scale.shape, 1).contiguous()
+    return torch.cat([q, sbytes.view(torch.int8)], -1)
 
 
 def _unpack_scales(packed: torch.Tensor):
@@ -275,22 +275,21 @@ def _unpack_scales(packed: torch.Tensor):
     return packed[..., :-4], scale
 
 
-def _quantized_schedule(x: torch.Tensor, comm) -> torch.Tensor:
-    """The JAX package's ``_quantized_schedule`` on the mesh layout: each
-    rank's ``x`` flattened, zero-padded and cut into ``size`` destination
-    chunks, quantized per chunk, moved with one alltoall of the packed
-    rows, dequantized and summed in f32 (rank 0's row first, then each
-    next one added), quantized again and shared with one all-gather of the
-    packed row, dequantized, cast back to ``x``'s dtype."""
-    from . import _collectives
-
-    n = comm.size()
-    lead = comm.layout_shape
+def _quantized_schedule(x: torch.Tensor, lead, n: int, alltoall,
+                        all_gather) -> torch.Tensor:
+    """The JAX package's ``_quantized_schedule``: each rank's ``x``
+    flattened, zero-padded and cut into ``n`` destination chunks, quantized
+    per chunk, moved with one alltoall of the packed rows, dequantized and
+    summed in f32 (rank 0's row first, then each next one added), quantized
+    again and shared with one all-gather of the packed row, dequantized,
+    cast back to ``x``'s dtype.  ``lead`` is the rank dimensions in front
+    of each rank's values (the mesh layout's, or none on the world tier);
+    ``alltoall`` and ``all_gather`` are the tier's legs."""
     flat, pad = _pad_to(x.reshape(*lead, -1), n)
     chunks = flat.reshape(*lead, n, -1)  # row j -> comm rank j
 
     q, scale = _quantize(chunks)
-    packed = _collectives.alltoall(_pack_scales(q, scale), comm)
+    packed = alltoall(_pack_scales(q, scale))
     q_t, s_t = _unpack_scales(packed)
     # rows: every rank's contribution to our chunk, reduced in f32
     partial = q_t.float() * s_t[..., None]
@@ -299,7 +298,7 @@ def _quantized_schedule(x: torch.Tensor, comm) -> torch.Tensor:
         mine = mine + partial.select(len(lead), j)
 
     q2, s2 = _quantize(mine)
-    rows = _collectives.all_gather(_pack_scales(q2, s2), comm)
+    rows = all_gather(_pack_scales(q2, s2))
     q_all, s_all = _unpack_scales(rows)
     full = (q_all.float() * s_all[..., None]).reshape(*lead, -1)
     if pad:
@@ -307,13 +306,23 @@ def _quantized_schedule(x: torch.Tensor, comm) -> torch.Tensor:
     return full.reshape(x.shape).to(x.dtype)
 
 
+def _mesh_schedule(x: torch.Tensor, comm) -> torch.Tensor:
+    """The schedule on the mesh layout: kernel 2 and the hops."""
+    from . import _collectives
+
+    return _quantized_schedule(
+        x, comm.layout_shape, comm.size(),
+        lambda rows: _collectives.alltoall(rows, comm),
+        lambda row: _collectives.all_gather(row, comm))
+
+
 class _QuantizedSum(torch.autograd.Function):
     """The schedule with the gradient of the JAX one: every value crosses
     int8, so ``jax.grad`` through it is zero everywhere."""
 
     @staticmethod
-    def forward(ctx, x, comm):
-        return _quantized_schedule(x, comm)
+    def forward(ctx, x, schedule):
+        return schedule(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -327,4 +336,32 @@ def quantized_allreduce_sum(x: torch.Tensor, comm) -> torch.Tensor:
     its dtype.  Its gradient is zero, as ``jax.grad``'s of the JAX
     schedule."""
     check_quantizable(x, comm)
-    return _QuantizedSum.apply(x, comm)
+    return _QuantizedSum.apply(x, lambda v: _mesh_schedule(v, comm))
+
+
+def quantized_allreduce_sum_world(x: torch.Tensor, comm) -> torch.Tensor:
+    """The same schedule on a world comm (``x`` is this rank's tensor), its
+    legs on the world tier's alltoall and allgather: the route of
+    ``compression="int8"`` when ``MPI4JAX_TPU_COLL_QUANT=deny`` vetoes the
+    transport's quantized schedules (``mpi4jax_tpu/ops/quantized.py:
+    236-251``).  Its gradient is zero, as the mesh schedule's."""
+    from . import _world_impl
+
+    check_quantizable(x, comm)
+    return _QuantizedSum.apply(x, lambda v: _quantized_schedule(
+        v, (), comm.size(), lambda rows: _world_impl._alltoall(rows, comm),
+        lambda row: _world_impl._allgather(row, comm)))
+
+
+def native_quant_algo(comm, x) -> "str | None":
+    """The transport's quantized schedule ("qring" or "qrd") that carries
+    a world ``compression="int8"`` allreduce: the twin of the exact pick of
+    the decision table for the payload (``tune.quantized_algorithm``); None
+    under ``MPI4JAX_TPU_COLL_QUANT=deny``, where the Python schedule serves
+    (``mpi4jax_tpu/ops/quantized.py:98-133``)."""
+    from .. import tune
+    from ..utils import config
+
+    if config.quant_mode() == "deny":
+        return None
+    return tune.quantized_algorithm(x.numel() * x.element_size())

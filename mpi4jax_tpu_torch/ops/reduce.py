@@ -1,8 +1,10 @@
 """reduce — reduce across ranks, the result delivered to the root.
 
-The counterpart of ``mpi4jax_tpu/ops/reduce.py`` on the mesh tier: the
-allreduce, then a per-rank select; the root receives the reduction and the
-other ranks their input back (``_mesh_impl.reduce``).
+The counterpart of ``mpi4jax_tpu/ops/reduce.py``.  On the mesh tier the
+allreduce, then a per-rank select (``_mesh_impl.reduce``); on the world
+tier the transport's reduce, a custom op as a gather and a fold at the
+root (``_world_impl.reduce``).  Either way the root receives the reduction
+and the other ranks their input back.
 """
 
 from __future__ import annotations
@@ -17,6 +19,15 @@ def reduce(x, op=SUM, root=0, *, comm=None, token=None):
     keep ``x``."""
     op = as_reduce_op(op)
     comm = _validation.resolve_comm(comm)
+    if _validation.is_world(comm):
+        from . import _world_impl
+
+        _validation.check_world_tensor("reduce", x, comm)
+        root = _validation.check_root("reduce", root, comm)
+        _validation.check_no_token("reduce", token, comm, x)
+        _validation.check_reduce_dtype("reduce", op, x, comm)
+        _validation.check_wire_dtype("reduce", x, comm)
+        return _world_impl.reduce(x, op, root, comm)
     _validation.check_tensor("reduce", x, comm)
     _validation.check_no_token("reduce", token, comm, x)
     root = _validation.check_root("reduce", root, comm)

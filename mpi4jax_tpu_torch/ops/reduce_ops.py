@@ -12,6 +12,8 @@ op carries
 - dtype admissibility (logical ops want bools or integers, bitwise ops
   integers) and differentiability (SUM only).
 
+``OP_CODES`` gives the built-in ops' codes on the native transport's wire.
+
 Ops are identified by name, as in the JAX package.
 """
 
@@ -97,6 +99,9 @@ BXOR = ReduceOp("BXOR", None, torch.bitwise_xor,
 
 ALL_OPS = (SUM, PROD, MAX, MIN, LAND, LOR, LXOR, BAND, BOR, BXOR)
 _BY_NAME = {op.name: op for op in ALL_OPS}
+#: the native transport's op codes (``TpuOp`` in ``native/tpucomm.h``), in
+#: the order of ``ALL_OPS``, as ``mpi4jax_tpu/ops/_world_impl.py:42``
+OP_CODES = {op.name: i for i, op in enumerate(ALL_OPS)}
 _CUSTOM_REGISTRY: dict = {}  # name -> (combine sig, reduce sig, domain)
 
 

@@ -1,8 +1,9 @@
 """scan — inclusive prefix reduction across ranks (MPI_Scan).
 
-The counterpart of ``mpi4jax_tpu/ops/scan.py`` on the mesh tier: a
+The counterpart of ``mpi4jax_tpu/ops/scan.py``.  On the mesh tier a
 log2(size) Hillis–Steele ladder whose shifts are hops
-(``_mesh_impl.scan``).
+(``_mesh_impl.scan``); on the world tier the transport's scan, a custom op
+as an allgather and a local prefix fold (``_world_impl.scan``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ def scan(x, op=SUM, *, comm=None, token=None):
     """Rank r receives ``op(x_0, ..., x_r)`` (inclusive prefix)."""
     op = as_reduce_op(op)
     comm = _validation.resolve_comm(comm)
+    if _validation.is_world(comm):
+        from . import _world_impl
+
+        _validation.check_world_tensor("scan", x, comm)
+        _validation.check_no_token("scan", token, comm, x)
+        _validation.check_reduce_dtype("scan", op, x, comm)
+        _validation.check_wire_dtype("scan", x, comm)
+        return _world_impl.scan(x, op, comm)
     _validation.check_tensor("scan", x, comm)
     _validation.check_no_token("scan", token, comm, x)
     _validation.check_reduce_dtype("scan", op, x, comm)

@@ -1,12 +1,20 @@
 """ctypes binding of the native transport, for the port's world tier.
 
-The counterpart of ``mpi4jax_tpu/runtime/bridge.py``, for the calls that
-the hierarchical f32 allreduce and its intra-island leg make: comm
-creation and its topology (``comm_init``, ``split``, ``comm_finalize``),
-``barrier``, ``bcast``, ``allgather``, ``allreduce`` with a forced
-algorithm, the leg's hook in front of the native allreduce, and the
-transport's own int8 codec (``quant_pack``).  Tuning, observability, live
-re-tuning and plan execution are not ported (ROADMAP.md).
+The counterpart of ``mpi4jax_tpu/runtime/bridge.py``: comm creation and
+its topology (``comm_init``, ``split``, ``dup``, ``comm_finalize``), the
+default decision table's install (``set_coll_table``, pushed by
+``tune.install`` at comm creation), every world op on contiguous numpy
+buffers (``send``, ``recv``, ``recv_status``, ``sendrecv``,
+``sendrecv_status``, ``shift2``, ``barrier``, ``bcast``, ``reduce``,
+``scan``, ``gather``, ``scatter``, ``allgather``, ``alltoall`` and
+``allreduce``, each collective with its forced-algorithm entry where the
+transport has one), the leg's hook in front of the native allreduce, and
+the transport's own int8 codec (``quant_pack``).  The argument layouts and
+output shapes are those of the JAX package's bridge (``:1103-1590``
+there); a function that fills a result takes its buffer as ``out``, so the
+world tier can hand in pinned host memory.  The tune cache and overrides,
+observability, live re-tuning and plan execution are not ported
+(ROADMAP.md).
 
 The build.  The transport is ``native/tpucomm.cc``, built transport-only
 (no XLA FFI) with the JAX package's flags (``bridge.py:45-52`` there) into
@@ -44,6 +52,7 @@ from typing import Optional
 import numpy as np
 
 from ..utils import config
+from ..utils import dtypes as _dtypes
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 NATIVE_DIR = _REPO_ROOT / "native"
@@ -64,8 +73,7 @@ PROBE_BUFFER = """    struct {
           reinterpret_cast<io_uring_probe_op*>(raw + sizeof(io_uring_probe));
     } pr{};"""
 
-#: native wire codes (native/tpucomm.h): the port's world allreduce is
-#: f32 SUM
+#: native wire codes (native/tpucomm.h) of the f32 SUM that the leg takes
 F32, SUM = 11, 0
 
 _lib: Optional[ctypes.CDLL] = None
@@ -124,6 +132,8 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     i64, c_int, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     for name, res, args in (
             ("tpucomm_init", i64, [c_int, c_int, c_int, ctypes.c_char_p]),
             ("tpucomm_finalize", None, [i64]),
@@ -132,11 +142,33 @@ def get_lib() -> ctypes.CDLL:
             ("tpucomm_split", i64, [i64, c_int, c_int]),
             ("tpucomm_set_topology", c_int,
              [i64, ctypes.POINTER(ctypes.c_int32), c_int, i64, i64]),
+            ("tpucomm_dup", i64, [i64]),
+            ("tpucomm_shm_info", c_int, [i64, i64p, i64p]),
+            ("tpucomm_send", c_int, [i64, ptr, i64, c_int, c_int]),
+            ("tpucomm_recv", c_int, [i64, ptr, i64, c_int, c_int]),
+            ("tpucomm_recv_status", c_int,
+             [i64, ptr, i64, c_int, c_int, i32p, i32p, i64p]),
+            ("tpucomm_sendrecv", c_int,
+             [i64, ptr, i64, c_int, ptr, i64, c_int, c_int]),
+            ("tpucomm_sendrecv_status", c_int,
+             [i64, ptr, i64, c_int, ptr, i64, c_int, c_int, c_int, i32p,
+              i32p, i64p]),
+            ("tpucomm_shift2", c_int,
+             [i64, ptr, ptr, i64, c_int, c_int, c_int]),
             ("tpucomm_barrier", c_int, [i64]),
             ("tpucomm_bcast", c_int, [i64, ptr, i64, c_int]),
+            ("tpucomm_gather", c_int, [i64, ptr, i64, ptr, c_int]),
+            ("tpucomm_scatter", c_int, [i64, ptr, ptr, i64, c_int]),
+            ("tpucomm_reduce", c_int,
+             [i64, ptr, ptr, i64, c_int, c_int, c_int]),
+            ("tpucomm_scan", c_int, [i64, ptr, ptr, i64, c_int, c_int]),
             ("tpucomm_allgather_algo", c_int, [i64, ptr, i64, ptr, c_int]),
+            ("tpucomm_alltoall_algo", c_int,
+             [i64, ptr, ptr, i64, c_int, c_int]),
             ("tpucomm_allreduce_algo", c_int,
              [i64, ptr, ptr, i64, c_int, c_int, c_int]),
+            ("tpucomm_set_coll_table", None,
+             [c_int, i64p, i32p, c_int]),
             ("tpucomm_coll_algo_for", c_int, [i64, c_int, i64]),
             ("tpucomm_quant_packed_bytes", i64, [i64]),
             ("tpucomm_quant_pack", c_int, [ptr, i64, c_int, ptr]),
@@ -183,16 +215,22 @@ _topo_subcomms: dict = {}
 
 def comm_init(rank: int, size: int, coord: str, device=None) -> int:
     """Connect this rank's world comm (collective over the world), run
-    topology discovery and return the native handle.  ``device`` is
-    where the world's tensors live: the leg runs its kernels there."""
+    topology discovery, install the default decision table
+    (``tune.install``) and return the native handle.  ``device`` is where
+    the world's tensors live: the leg runs its kernels there."""
+    from .. import tune
+
+    tune.check_knobs()
     lib = get_lib()
     _, _, port = coord.partition(":")
     hosts = os.environ.get("MPI4JAX_TPU_HOSTS", "")
     handle = lib.tpucomm_init(rank, size, int(port or 49817), hosts.encode())
     if handle == 0:
         _abort("init", 1)
+    topology = None
     if size > 1 and config.topo_mode() != "off":
-        _install_topology(lib, handle, rank, size, device)
+        topology = _install_topology(lib, handle, rank, size, device)
+    tune.install(size, topology=topology)
     return handle
 
 
@@ -258,6 +296,34 @@ def split(handle, color: int, key: int):
     return None if h == -1 else h
 
 
+def dup(handle) -> int:
+    """Collective: a comm of the same members with its own message
+    space."""
+    h = get_lib().tpucomm_dup(handle)
+    if h == 0:
+        _abort("Dup", 1)
+    return h
+
+
+def shm_active(handle) -> bool:
+    """True when the comm's collectives ride the same-host shared-memory
+    arena (which wins over every forced algorithm)."""
+    slot, ring = ctypes.c_int64(), ctypes.c_int64()
+    return get_lib().tpucomm_shm_info(handle, ctypes.byref(slot),
+                                      ctypes.byref(ring)) == 1
+
+
+def set_coll_table(coded_table) -> None:
+    """Install the process-wide decision tables: ``{op_kind: [(min_bytes,
+    algo_code), ...]}`` (``tune.install``)."""
+    lib = get_lib()
+    for op_kind, entries in coded_table.items():
+        n = len(entries)
+        mins = (ctypes.c_int64 * n)(*[int(e[0]) for e in entries])
+        algos = (ctypes.c_int32 * n)(*[int(e[1]) for e in entries])
+        lib.tpucomm_set_coll_table(int(op_kind), mins, algos, n)
+
+
 def comm_rank(handle) -> int:
     return get_lib().tpucomm_rank(handle)
 
@@ -274,31 +340,171 @@ def coll_algo_for(handle, op_kind: int, nbytes: int) -> int:
     return code
 
 
-# ---------------- collectives on contiguous numpy buffers ----------------
+# ---------------- ops on contiguous numpy buffers ----------------
+
+
+def wire_code(a: np.ndarray) -> int:
+    """The wire code of a numpy array's dtype (numpy has no bf16: its
+    callers pass code 10 with the int16 bits)."""
+    return _dtypes.name_code(a.dtype.name)
+
+
+def _new_out(out, shape, dtype) -> np.ndarray:
+    if out is None:
+        return np.empty(shape, dtype)
+    if out.shape != tuple(shape) or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a contiguous array of shape "
+                         f"{tuple(shape)}, got {out.shape}")
+    return out
+
+
+def send(handle, buf, dest: int, tag: int):
+    buf = _contig(buf)
+    _check("Send", get_lib().tpucomm_send(handle, _ptr(buf), buf.nbytes,
+                                          int(dest), int(tag)))
+
+
+def recv(handle, out: np.ndarray, source: int, tag: int) -> np.ndarray:
+    """Receive into ``out``; the arrived size must equal ``out``'s (the
+    transport fails fast otherwise)."""
+    _check("Recv", get_lib().tpucomm_recv(handle, _ptr(out), out.nbytes,
+                                          int(source), int(tag)))
+    return out
+
+
+def recv_status(handle, out: np.ndarray, source: int, tag: int):
+    """Receive into ``out`` (zeroed: a shorter message fills its prefix)
+    and return ``(out, source, tag, byte count)`` from the frame header;
+    ``tag`` may be ANY_TAG (-1), ``source`` ANY_SOURCE (-2)."""
+    out.fill(0)
+    src, tg, cnt = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int64()
+    _check("Recv", get_lib().tpucomm_recv_status(
+        handle, _ptr(out), out.nbytes, int(source), int(tag),
+        ctypes.byref(src), ctypes.byref(tg), ctypes.byref(cnt)))
+    return out, src.value, tg.value, cnt.value
+
+
+def sendrecv(handle, sendbuf, out: np.ndarray, source: int, dest: int,
+             tag: int) -> np.ndarray:
+    sendbuf = _contig(sendbuf)
+    _check("Sendrecv", get_lib().tpucomm_sendrecv(
+        handle, _ptr(sendbuf), sendbuf.nbytes, int(dest), _ptr(out),
+        out.nbytes, int(source), int(tag)))
+    return out
+
+
+def sendrecv_status(handle, sendbuf, out: np.ndarray, source: int,
+                    dest: int, sendtag: int, recvtag: int):
+    """``sendrecv`` with split tags into ``out`` (zeroed), returning
+    ``(out, source, tag, byte count)``."""
+    sendbuf = _contig(sendbuf)
+    out.fill(0)
+    src, tg, cnt = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int64()
+    _check("Sendrecv", get_lib().tpucomm_sendrecv_status(
+        handle, _ptr(sendbuf), sendbuf.nbytes, int(dest), _ptr(out),
+        out.nbytes, int(source), int(sendtag), int(recvtag),
+        ctypes.byref(src), ctypes.byref(tg), ctypes.byref(cnt)))
+    return out, src.value, tg.value, cnt.value
+
+
+def shift2(handle, buf, lo: int, hi: int, tag: int,
+           out: np.ndarray) -> np.ndarray:
+    """Bidirectional neighbour exchange: ``buf`` is the ``(2, ...)`` stack
+    ``[to_lo, to_hi]``; returns ``[from_lo, from_hi]`` (-1 is a wall: the
+    opposite input passes through)."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape, buf.dtype)
+    _check("Shift2", get_lib().tpucomm_shift2(
+        handle, _ptr(buf), _ptr(out), buf.nbytes // 2, int(lo), int(hi),
+        int(tag)))
+    return out
 
 
 def barrier(handle):
     _check("Barrier", get_lib().tpucomm_barrier(handle))
 
 
-def bcast(handle, buf, root) -> np.ndarray:
-    out = _contig(buf).copy()
+def bcast(handle, buf, root, out=None) -> np.ndarray:
+    """The root's ``buf`` on every rank; ``buf`` is not written (the
+    broadcast runs in a copy, ``out`` when given)."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape, buf.dtype)
+    np.copyto(out, buf)
     _check("Bcast", get_lib().tpucomm_bcast(handle, _ptr(out), out.nbytes,
                                             int(root)))
     return out
 
 
-def allgather_raw(handle, buf: np.ndarray, out: np.ndarray):
-    """Allgather of contiguous ``buf`` into ``out`` (the engine's
-    schedule)."""
+def reduce(handle, buf, op_code: int, root: int, out: np.ndarray,
+           dtype_code: int) -> np.ndarray:
+    """The reduction on the root; the other ranks get ``buf`` back."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape, buf.dtype)
+    _check("Reduce", get_lib().tpucomm_reduce(
+        handle, _ptr(buf), _ptr(out), buf.size, int(dtype_code),
+        int(op_code), int(root)))
+    return out
+
+
+def scan(handle, buf, op_code: int, out: np.ndarray,
+         dtype_code: int) -> np.ndarray:
+    """The inclusive prefix reduction over ranks 0..rank."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape, buf.dtype)
+    _check("Scan", get_lib().tpucomm_scan(
+        handle, _ptr(buf), _ptr(out), buf.size, int(dtype_code),
+        int(op_code)))
+    return out
+
+
+def gather(handle, buf, size: int, root: int, rank: int, out=None
+           ) -> np.ndarray:
+    """``(size, *buf.shape)`` on the root; a non-root rank only sends and
+    gets ``buf`` back (the reference's contract)."""
+    buf = _contig(buf)
+    if rank == root:
+        out = _new_out(out, (size,) + buf.shape, buf.dtype)
+    else:
+        out = buf
+    _check("Gather", get_lib().tpucomm_gather(handle, _ptr(buf), buf.nbytes,
+                                              _ptr(out), int(root)))
+    return out
+
+
+def scatter(handle, buf, root: int, out: np.ndarray) -> np.ndarray:
+    """Row ``rank`` of the root's ``(size, ...)`` buffer."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape[1:], buf.dtype)
+    _check("Scatter", get_lib().tpucomm_scatter(
+        handle, _ptr(buf), _ptr(out), out.nbytes, int(root)))
+    return out
+
+
+def allgather_raw(handle, buf: np.ndarray, out: np.ndarray,
+                  algo: Optional[int] = None):
+    """Allgather of contiguous ``buf`` into ``out``; ``algo`` is the
+    algorithm code forced for this call (None or 0: the engine's
+    choice)."""
     _check("Allgather", get_lib().tpucomm_allgather_algo(
-        handle, _ptr(buf), buf.nbytes, _ptr(out), 0))
+        handle, _ptr(buf), buf.nbytes, _ptr(out), int(algo or 0)))
 
 
 def allgather(handle, buf, size: int) -> np.ndarray:
     buf = _contig(buf)
     out = np.empty((size,) + buf.shape, buf.dtype)
     allgather_raw(handle, buf, out)
+    return out
+
+
+def alltoall(handle, buf, out: np.ndarray, algo: Optional[int],
+             dtype_code: int) -> np.ndarray:
+    """Row ``j`` of ``buf`` to rank ``j``; row ``j`` of the result from
+    rank ``j``.  The typed entry (elements per row and their dtype)."""
+    buf = _contig(buf)
+    out = _new_out(out, buf.shape, buf.dtype)
+    _check("Alltoall", get_lib().tpucomm_alltoall_algo(
+        handle, _ptr(buf), _ptr(out), buf.size // buf.shape[0],
+        int(dtype_code), int(algo or 0)))
     return out
 
 
@@ -331,13 +537,10 @@ def allreduce_raw(handle, buf: np.ndarray, out: np.ndarray, dtype_code: int,
 
 def allreduce(handle, buf, op_code: int, algo: Optional[int] = None
               ) -> np.ndarray:
-    """The f32 allreduce of ``buf`` into a new array."""
+    """The allreduce of ``buf`` into a new array."""
     buf = _contig(buf)
-    if buf.dtype != np.float32:
-        raise TypeError(f"the port's world allreduce is float32, got "
-                        f"{buf.dtype}")
     out = np.empty_like(buf)
-    allreduce_raw(handle, buf, out, F32, op_code, algo=algo)
+    allreduce_raw(handle, buf, out, wire_code(buf), op_code, algo=algo)
     return out
 
 

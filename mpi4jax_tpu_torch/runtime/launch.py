@@ -2,9 +2,10 @@
 
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
         [--port P] [--timeout S] prog.py [args...]
+    python -m mpi4jax_tpu_torch.runtime.launch -n 4 -m package.module [-- args...]
 
 The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
-rank runs ``prog.py`` with ``MPI4JAX_TPU_RANK`` / ``SIZE`` / ``COORD`` /
+rank runs ``prog.py`` (or ``python -m package.module`` under ``-m``) with ``MPI4JAX_TPU_RANK`` / ``SIZE`` / ``COORD`` /
 ``JOBID`` set (and ``MPI4JAX_TPU_FAKE_HOSTS`` under ``--fake-hosts``);
 ``transport.get_world_comm()`` then returns its ``WorldComm``.  The ranks
 share this host; on a machine with one card they all use it.
@@ -26,6 +27,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 import uuid
 
@@ -95,11 +97,17 @@ def main(argv=None) -> int:
                     help="virtual host partition ('r0,r1|r2,r3': ranks 0-1 "
                          "and 2-3 form two islands), exported to every "
                          "rank as MPI4JAX_TPU_FAKE_HOSTS")
-    ap.add_argument("prog", help="python program to run")
+    ap.add_argument("-m", dest="module", action="store_true",
+                    help="PROG is a module, run as each rank's program "
+                         "(python -m)")
+    ap.add_argument("prog", help="python program (or module under -m) "
+                                 "to run")
     ap.add_argument("args", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if args.np < 1:
         ap.error("-n must be at least 1")
+    prog_args = args.args[1:] if args.args[:1] == ["--"] else args.args
+    command = ["-m"] * args.module + [args.prog, *prog_args]
 
     base_port = args.port or _free_port_block(args.np)
     # job-unique token for the transport's shared-memory names
@@ -116,14 +124,18 @@ def main(argv=None) -> int:
         else:
             raise _Terminated
 
-    old_term = signal.signal(signal.SIGTERM, _on_sigterm)
+    # a launcher run from a thread (concurrent jobs) keeps the process's
+    # handler: signal handlers belong to the main thread
+    main_thread = threading.current_thread() is threading.main_thread()
+    old_term = (signal.signal(signal.SIGTERM, _on_sigterm) if main_thread
+                else None)
     exit_code = 0
     first_fail = None
     t_start = time.time()
     try:
         for rank in range(args.np):
             procs.append(subprocess.Popen(
-                [sys.executable, args.prog, *args.args],
+                [sys.executable, *command],
                 env=rank_env(rank, args.np, base_port, jobid,
                              args.fake_hosts)))
         in_spawn[0] = False
@@ -152,7 +164,8 @@ def main(argv=None) -> int:
                 break
             time.sleep(0.02)
     except (_Terminated, KeyboardInterrupt) as e:
-        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        if main_thread:
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
         _terminate_group(procs)
         exit_code = 143 if isinstance(e, _Terminated) else 130
     except BaseException:
@@ -160,7 +173,8 @@ def main(argv=None) -> int:
         _terminate_group(procs)
         raise
     finally:
-        signal.signal(signal.SIGTERM, old_term)
+        if main_thread:
+            signal.signal(signal.SIGTERM, old_term)
     if first_fail is not None:
         print(f"launch: post-mortem: rank {first_fail[0]} failed first "
               f"(exit code {first_fail[1]})", file=sys.stderr, flush=True)

@@ -9,9 +9,11 @@ each rank; mpirun, PMI and srun environments are adopted as there.
 
 A ``WorldComm`` has a ``device``: where the tensors that its ops take and
 return live, ``cuda:0`` unless the caller passes ``device="cpu"``.  Its
-data crosses the native transport through host memory (the reference's
-GPU bridge pattern), and the intra-island leg of its hierarchical
-allreduce runs its kernels on that device.
+data crosses the native transport through pinned host memory (the
+reference's GPU bridge pattern, ``ops/_world_impl.py``), and the
+intra-island leg of its hierarchical allreduce runs its kernels on that
+device.  ``split`` and ``dup`` make sub-communicators that borrow the
+world's sockets.
 """
 
 from __future__ import annotations
@@ -125,7 +127,10 @@ class WorldComm(CommBase):
 
     @property
     def handle(self) -> int:
-        """The native communicator (connects on first use)."""
+        """The native communicator (connects on first use, then installs
+        the default decision table, ``tune.install``).  A knob of the
+        tuner that is not ported raises ``NotImplementedError`` before
+        anything connects."""
         if self._handle is None:
             from . import bridge
 
@@ -133,6 +138,15 @@ class WorldComm(CommBase):
                                             self._coord,
                                             device=self.device)
         return self._handle
+
+    def dup(self) -> "WorldComm":
+        """Collective: a comm of the same ranks with its own message
+        space."""
+        from . import bridge
+
+        return WorldComm(self._rank, self._size, self._coord,
+                         device=self.device, handle=bridge.dup(self.handle),
+                         parent=self)
 
     def split(self, color: int, key=None):
         """Collective: ranks sharing ``color`` form a new communicator,

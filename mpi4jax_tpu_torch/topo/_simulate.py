@@ -12,7 +12,12 @@ held to it bit for bit.
   the native intra fold (island members in order), ``intra="ring"`` the
   intra-island leg's ring (``topo/_ici_leg.py``);
 - ``simulate_ici_q_sum``: the quantized leg: the ring island sums, each
-  packed once with the int8 codec, dequantized and folded in island order.
+  packed once with the int8 codec, dequantized and folded in island order;
+- ``simulate_qring_sum`` / ``simulate_qrd_sum``: the transport's quantized
+  schedules, copies of ``mpi4jax_tpu/ops/quantized.py:319-377``;
+- ``simulate_tree_sum``: the binomial tree (native ``tree_allreduce``),
+  which the JAX package has no model of: the world tier's forced ``tree``
+  is held to it.
 """
 
 from __future__ import annotations
@@ -92,6 +97,84 @@ def simulate_rd_sum(inputs: Sequence[np.ndarray]) -> np.ndarray:
         if r % 2 == 0:
             bufs[r] = bufs[r + 1].copy()
     return bufs[0]
+
+
+def simulate_tree_sum(inputs: Sequence[np.ndarray]) -> np.ndarray:
+    """The binomial tree's f32 SUM (native ``tree_allreduce``): at each
+    mask, a rank with that bit clear folds in rank ``r + mask``'s partial
+    sum; rank 0's total is broadcast."""
+    n = len(inputs)
+    bufs = [_f32(v).copy() for v in inputs]
+    mask = 1
+    while mask < n:
+        for r in range(0, n, 2 * mask):
+            if r + mask < n:
+                bufs[r] = (bufs[r] + bufs[r + mask]).astype(np.float32)
+        mask <<= 1
+    return bufs[0]
+
+
+def _qdq(x: np.ndarray) -> np.ndarray:
+    """The codec's quantize-dequantize round trip."""
+    return _q.quant_unpack_ref(*_q.quant_pack_ref(x))
+
+
+def simulate_qring_sum(parts: Sequence[np.ndarray]) -> np.ndarray:
+    """The native ``qring`` allreduce: a direct quantized reduce-scatter
+    (each rank's inputs quantized once, contributions folded in fixed rank
+    order) followed by the once-quantized allgather; the one result every
+    rank holds."""
+    parts = [np.ascontiguousarray(p, np.float32).reshape(-1) for p in parts]
+    size = len(parts)
+    count = parts[0].size
+    if size == 1:
+        return parts[0].copy()
+    out = np.empty(count, np.float32)
+    for c in range(size):
+        lo, hi = _chunk_lo(count, size, c), _chunk_lo(count, size, c + 1)
+        acc = parts[c][lo:hi].astype(np.float32)  # owner's own data, exact
+        # arrival order rank-1, rank-2, ... (the fixed fold order)
+        for round_ in range(1, size):
+            src = (c - round_) % size
+            acc = (acc + _qdq(parts[src][lo:hi])).astype(np.float32)
+        out[lo:hi] = _qdq(acc)  # once-quantized allgather
+    return out
+
+
+def simulate_qrd_sum(parts: Sequence[np.ndarray]) -> np.ndarray:
+    """The native ``qrd`` allreduce: quantized recursive doubling with the
+    non-power-of-two fold and the final requantize that keeps every rank
+    bit-identical."""
+    parts = [np.ascontiguousarray(p, np.float32).reshape(-1) for p in parts]
+    size = len(parts)
+    if size == 1:
+        return parts[0].copy()
+    accs = [p.astype(np.float32) for p in parts]
+    pof2 = 1
+    while pof2 * 2 <= size:
+        pof2 *= 2
+    rem = size - pof2
+    group = {}  # newrank -> acc
+    for rank in range(size):
+        if rank < 2 * rem:
+            if rank % 2 == 1:
+                group[rank // 2] = (_qdq(accs[rank])
+                                    + _qdq(accs[rank - 1])
+                                    ).astype(np.float32)
+        else:
+            group[rank - rem] = accs[rank]
+    for shift in range(pof2.bit_length() - 1):
+        mask = 1 << shift
+        nxt = {}
+        for nr, acc in group.items():
+            peer = nr ^ mask
+            nxt[nr] = (_qdq(acc) + _qdq(group[peer])).astype(np.float32)
+        group = nxt
+    # all butterfly participants are bit-identical now
+    result = group[0]
+    if rem > 0:
+        result = _qdq(result)  # the quantized return frame
+    return result
 
 
 def _island_sums(inputs: Sequence[np.ndarray],

@@ -35,11 +35,11 @@ def check_static_int(name: str, value: Any):
 
 
 def op_context(op_name: str, comm=None, x=None) -> str:
-    """`` [op, mesh axes (...), dtype ..., shape (...)]``."""
+    """`` [op, mesh axes (...) or rank r/n, dtype ..., shape (...)]``."""
     bits = [op_name]
     if comm is not None:
         bits.append(f"mesh axes {comm.axes!r}" if hasattr(comm, "axes")
-                    else f"world comm of {comm.size()} ranks")
+                    else f"rank {comm.rank()}/{comm.size()}")
     if isinstance(x, torch.Tensor):
         bits.append(f"dtype {_dtypes.dtype_name(x.dtype)}")
         bits.append(f"shape {tuple(x.shape)}")
@@ -51,28 +51,32 @@ def fail(msg: str, *, op: str, comm=None, x=None, exc=None):
     raise (exc or ValidationError)(msg + op_context(op, comm, x))
 
 
-def resolve_comm(comm, *, world: bool = False):
-    """``comm``, or the ambient one.  A ``WorldComm`` raises
-    ``NotImplementedError`` unless the op carries the world tier
-    (``world=True``: the allreduce); anything else but a ``MeshComm``
-    raises ``TypeError``."""
+def resolve_comm(comm, *, mesh_only: str = None):
+    """``comm``, or the ambient one: a ``MeshComm`` or a ``WorldComm``;
+    anything else raises ``TypeError``.  ``mesh_only`` names a function
+    that has no world-tier route: a ``WorldComm`` then raises
+    ``NotImplementedError``."""
     from ..parallel.mesh import MeshComm, get_default_comm
     from ..runtime.transport import WorldComm
 
     if comm is None:
         comm = get_default_comm()
     if isinstance(comm, WorldComm):
-        if not world:
+        if mesh_only:
             raise NotImplementedError(
-                "this op is not ported to the world tier yet: a world comm "
-                "carries only the f32 SUM allreduce with a forced algo= "
-                "(ROADMAP.md §1 item 6)")
+                f"{mesh_only} runs on the mesh tier only (one program over "
+                "the ranks' stacked tensors); it has no world-tier route")
         return comm
     if not isinstance(comm, MeshComm):
         raise TypeError(
             "comm must be a mpi4jax_tpu_torch communicator (MeshComm or "
             f"WorldComm), got {type(comm).__qualname__}")
     return comm
+
+
+def is_world(comm) -> bool:
+    """True for a world-tier communicator (one process per rank)."""
+    return not hasattr(comm, "axes")
 
 
 def check_tensor(op: str, x: Any, comm):
@@ -94,6 +98,28 @@ def check_tensor(op: str, x: Any, comm):
     return x
 
 
+def check_world_tensor(op: str, x: Any, comm, name: str = "x"):
+    """On a world comm ``x`` is this rank's tensor: a ``torch.Tensor`` on
+    the comm's device (another device raises ``ValueError``: nothing is
+    moved quietly)."""
+    if not isinstance(x, torch.Tensor):
+        fail(f"{name} must be a torch.Tensor, got {_describe(x)}", op=op,
+             comm=comm)
+    if x.device != comm.device:
+        fail(f"{name} is on {x.device}, the comm on {comm.device}",
+             op=op, comm=comm, x=x, exc=ValueError)
+    return x
+
+
+def check_wire_dtype(op: str, x, comm):
+    """A dtype that the transport's wire cannot carry raises, with the
+    op's context (``mpi4jax_tpu/utils/validation.py:122-133``)."""
+    try:
+        _dtypes.wire_code(x.dtype)
+    except TypeError as err:
+        raise ValidationError(f"{err}{op_context(op, comm, x)}") from None
+
+
 def check_reduce_dtype(op_name: str, reduce_op, x, comm):
     """``reduce_op.check_dtype`` with the op's context."""
     try:
@@ -108,7 +134,7 @@ def check_no_token(op: str, token, comm=None, x=None):
     if token is not None:
         fail("token= is not supported: the port runs eagerly, so program "
              "order is the order of the ops (the token API is queued in "
-             "ROADMAP.md §1 item 6)", op=op, comm=comm, x=x,
+             "ROADMAP.md §1 item 4)", op=op, comm=comm, x=x,
              exc=NotImplementedError)
 
 

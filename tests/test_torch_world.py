@@ -77,7 +77,7 @@ def test_transport_codec_is_the_plain_frame(built, n):
     assert bridge.quant_packed_bytes(n) == quantized.quant_packed_bytes(n)
 
 
-def test_world_front_checks_need_no_transport():
+def test_world_front_checks_need_no_transport(monkeypatch):
     comm = transport.WorldComm(0, 4, "127.0.0.1:1", device="cpu")
     jcomm = jtransport.WorldComm(0, 4, "127.0.0.1:1")
     x = torch.ones(8)
@@ -89,23 +89,41 @@ def test_world_front_checks_need_no_transport():
             mpi4jax_tpu.allreduce(jnp.ones(8), comm=jcomm, **kw)
         with pytest.raises(ValueError):
             ops.allreduce(x, comm=comm, **kw)
-    # what this slice does not carry raises NotImplementedError
-    for args, kw in (((), {}), ((), {"algo": "auto"}),
-                     ((), {"algo": "qring"}),
-                     ((), {"compression": "int8"}),
-                     ((ops.MAX,), {"algo": "hring"}),
-                     ((), {"algo": "hring", "token": object()})):
+    # what stays unported raises NotImplementedError naming ROADMAP.md:
+    # token=, and the alltoall's quantized and hierarchical schedules
+    rows = torch.ones(4, 2)
+    for call in (lambda: ops.allreduce(x, comm=comm, token=object()),
+                 lambda: ops.bcast(x, 0, comm=comm, token=object()),
+                 lambda: ops.barrier(comm=comm, token=object()),
+                 lambda: ops.alltoall(rows, comm=comm, algo="qalltoall"),
+                 lambda: ops.alltoall(rows, comm=comm, algo="halltoall"),
+                 lambda: ops.alltoall(rows, comm=comm, algo="hqalltoall"),
+                 lambda: ops.alltoall(rows, comm=comm, compression="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.allreduce(x, *args, comm=comm, **kw)
+            call()
+    # the tuner's operator override is refused at comm creation, before
+    # anything connects
+    monkeypatch.setenv("MPI4JAX_TPU_COLL_ALGO", "ring")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.allreduce(x.double(), comm=comm, algo="hring")
-    for front, args in ((ops.allgather, ()), (ops.bcast, (0,)),
-                        (ops.alltoall, ()), (ops.scan, (ops.SUM,)),
-                        (ops.reduce, (ops.SUM, 0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            front(x, *args, comm=comm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.barrier(comm=comm)
+        ops.allreduce(x, comm=comm)
+    monkeypatch.delenv("MPI4JAX_TPU_COLL_ALGO")
+    # a bad root, source or destination raises before any transport use,
+    # with the JAX world fronts' exception
+    for name, args in (("bcast", (4,)), ("gather", (-1,)),
+                       ("scatter", (4,)), ("reduce", ("SUM", 4))):
+        with pytest.raises(TypeError, match="out of range"):
+            getattr(mpi4jax_tpu, name)(jnp.ones((4, 2)), *args, comm=jcomm)
+        with pytest.raises(TypeError, match="out of range"):
+            getattr(ops, name)(rows, *args, comm=comm)
+    with pytest.raises(TypeError, match="out of range"):
+        ops.send(x, 4, comm=comm)
+    with pytest.raises(TypeError, match="out of range"):
+        ops.recv(x, 9, comm=comm)
+    with pytest.raises(TypeError, match="out of range"):
+        ops.neighbor_exchange(x, x, lo=7, hi=None, comm=comm)
+    # a tensor on another device than the comm's raises, nothing moves
+    with pytest.raises(ValueError, match="meta"):
+        ops.allgather(torch.ones(2, device="meta"), comm=comm)
     assert comm._handle is None  # nothing touched the transport
 
 
@@ -114,8 +132,8 @@ def test_world_allreduce_gradient_is_the_identity(monkeypatch):
     (the transport is replaced by a sum of 4 equal ranks)."""
     from mpi4jax_tpu_torch.ops import _world_impl
 
-    monkeypatch.setattr(_world_impl, "_staged",
-                        lambda x, comm, code: (x * 4).detach())
+    monkeypatch.setattr(_world_impl, "_allreduce",
+                        lambda x, comm, op_code, algo: (x * 4).detach())
     comm = transport.WorldComm(0, 4, "127.0.0.1:1", device="cpu")
     x = torch.arange(6, dtype=torch.float32).requires_grad_()
     y = ops.allreduce(x, comm=comm, algo="hring")
