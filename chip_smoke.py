@@ -206,12 +206,26 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    transport; the median over 20 instrumented steps), and rank 0's
    gathered h, u and v within
    ``_sw_check.CHECK_TOL`` of each field's scale from path (a)'s plain
-   route (phase 10), and whether bit for bit.
+   route (phase 10), and whether bit for bit;
+30. path (l): the tuner (``python -m mpi4jax_tpu_torch.tune --np 4``,
+   allreduce and alltoall at 1 KiB to 16 MiB) writes a cache, and the world
+   MoE job runs under it (``runtime.launch -n 4 --fake-hosts 'r0,r1|r2,r3'
+   --trace``, ``benchmarks.moe_world``, ``MPI4JAX_TPU_DISABLE_SHM=1``):
+   ``moe_ffn`` forward at d_model 768, d_ff 3072, 4 experts, 8192 f32
+   tokens a rank on the routes auto, int8, halltoall and hqalltoall against
+   the exact route, the alltoall alone on the (4, 2560, 768) dispatch
+   buffer under ring, qalltoall, halltoall and hqalltoall bit for bit
+   against ``topo/_simulate.py``, two 16 MiB f32 ``hring`` allreduces on
+   the intra-island leg (kernel 3, and kernel 4 under
+   ``MPI4JAX_TPU_COLL_QUANT=force``), the recorder's cost, each timed;
+   then the merged trace validates, ``profile report --json`` holds the
+   four alltoall schedules and the ``ici`` allreduce with nothing dropped,
+   and ``tune --from-trace`` gives a cache that loads.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-29 on the CPU through the plain versions at a small size and prints
+23-30 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -220,6 +234,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -230,12 +245,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mpi4jax_tpu_torch import _build, ops
+from mpi4jax_tpu_torch import _build, obs, ops, tune
 from mpi4jax_tpu_torch.benchmarks import allreduce_sweep
 from mpi4jax_tpu_torch.benchmarks import alltoall_family as a2a_bench
 from mpi4jax_tpu_torch.benchmarks._profile import RERUNS, kernel_ms_by_group
 from mpi4jax_tpu_torch.benchmarks import gpt_step as gpt_bench
 from mpi4jax_tpu_torch.benchmarks import ici_leg
+from mpi4jax_tpu_torch.benchmarks import moe_world
 from mpi4jax_tpu_torch.benchmarks import pp_step as pp_bench
 from mpi4jax_tpu_torch.benchmarks import resnet_step as resnet_bench
 from mpi4jax_tpu_torch.benchmarks import ring_attention as ring_bench
@@ -319,6 +335,12 @@ H_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
 I_LAUNCHES = {1: {"hop": 0, "fused_ring": 0},
               4: {"hop": 19, "fused_ring": 2}}
 WORLD_RANKS = 4  # phase 28
+# phase 30, path (l): the tuner's sweep, then the world MoE job
+L_TUNE_SIZES = "1024,65536,1048576,16777216"
+L_SMALL = ["--device", "cpu", "--tokens", "64", "--d-model", "16",
+           "--d-ff", "32", "--leg-bytes", "65536", "--reps", "3",
+           "--small-reps", "10"]
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg=""):
@@ -1885,6 +1907,138 @@ def path_k(dev, a, shape, card):
                 job_seconds=secs)
 
 
+def _run(what, cmd, env, timeout):
+    """A subprocess from the repo's root; its failure fails the phase with
+    the tail of its output."""
+    proc = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def path_l(on_card, card):
+    """Phase 30: path (l).  The tuner (``python -m mpi4jax_tpu_torch.tune
+    --np 4``) writes a cache; the world MoE job runs under it with the
+    recorder (``runtime.launch -n 4 --fake-hosts 'r0,r1|r2,r3' --trace``,
+    ``benchmarks.moe_world``, the shm arena off), each rank holding its
+    outputs to the simulators and the exact route; then the merged trace
+    must validate, ``profile report --json`` must hold a row for each of
+    the four alltoall schedules and for the leg's ``ici`` allreduce with
+    nothing dropped, and ``tune --from-trace`` must give a cache that
+    loads."""
+    if on_card:
+        torch.cuda.empty_cache()
+    py = sys.executable
+    with tempfile.TemporaryDirectory(prefix="path_l_") as tmp:
+        cache = os.path.join(tmp, "tune_4.json")
+        env = dict(os.environ, MPI4JAX_TPU_DISABLE_SHM="1",
+                   MPI4JAX_TPU_TUNE_CACHE=cache)
+        t0 = time.perf_counter()
+        proc = _run("the tuner", [
+            py, "-m", "mpi4jax_tpu_torch.tune", "--np", "4", "--sizes",
+            L_TUNE_SIZES if on_card else "1024,65536", "--repeats", "3",
+            "--ops", "allreduce,alltoall", "--cache", cache]
+            + ([] if on_card else ["--device", "cpu"]), env, 600)
+        tune_secs = time.perf_counter() - t0
+        winners = [json.loads(line) for line in proc.stdout.splitlines()
+                   if line.startswith("{")]
+        for w in winners:
+            log(f"  tuner: {w['op']} {w['bytes']} B -> {w['winner']}; ms "
+                + ", ".join(f"{a} {t * 1e3:.4f}"
+                            for a, t in w["seconds"].items()))
+        trace = os.path.join(tmp, "l.json")
+        t0 = time.perf_counter()
+        _run("the path (l) job", [
+            py, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n", "4",
+            "--fake-hosts", ici_leg.FAKE_HOSTS, "--trace", trace,
+            "--timeout", "600", "-m", "mpi4jax_tpu_torch.benchmarks.moe_world",
+            "--out", tmp] + ([] if on_card else L_SMALL), env, 900)
+        job_secs = time.perf_counter() - t0
+        with open(os.path.join(tmp, "record.json")) as f:
+            rec = json.load(f)
+        with open(trace) as f:
+            errors = obs.validate_chrome_trace(json.load(f))
+        if errors:
+            fail(f"path (l): the merged trace is invalid: {errors[:3]}")
+        parts = obs.part_paths(trace)
+        # a rank whose dump failed at exit still exits 0: hold every part
+        # to the events its rank counted before the dump
+        if len(parts) != 4:
+            fail(f"path (l): {len(parts)} recording parts, expected 4")
+        for path in parts:
+            part = obs.load_part(path)
+            r = int(part["rank"])
+            if len(part["events"]) < rec["events_per_rank"][r]:
+                fail(f"path (l): rank {r}'s part holds "
+                     f"{len(part['events'])} events, the rank counted "
+                     f"{rec['events_per_rank'][r]}")
+        stats = json.loads(_run("profile report", [
+            py, "-m", "mpi4jax_tpu_torch.profile", "report", "--json",
+            *parts], env, 300).stdout)
+        rows = stats["per_op"]
+        for algo in moe_world.FAMILY:
+            if not any(r["op"] == "Alltoall" and r["src"] == "native"
+                       and r["algo"] == algo and "tier" not in r
+                       for r in rows):
+                fail(f"path (l): no alltoall row for {algo} in the report")
+        ici = [r for r in rows if r["op"] == "Allreduce"
+               and r.get("tier") == "ici"]
+        if not ici:
+            fail("path (l): no ici allreduce row in the report")
+        for k, v in rec["leg"].items():
+            want = {"fused_ring": 4 * v["calls"] if on_card else 0,
+                    "quant_pack": 4 * v["calls"] if on_card and "q" in k
+                    else 0}
+            if v["launches_all_ranks"] != want:
+                fail(f"path (l): the leg {k} launched "
+                     f"{v['launches_all_ranks']}, expected {want}")
+        dropped = sum(stats["dropped"].values())
+        if dropped:
+            fail(f"path (l): {dropped} events dropped")
+        ft = os.path.join(tmp, "from_trace.json")
+        _run("tune --from-trace", [
+            py, "-m", "mpi4jax_tpu_torch.tune", "--from-trace",
+            ",".join(parts), "--cache", ft], env, 300)
+        saved = (tune._cache_table, tune._cache_origin, tune._cache_combos)
+        try:
+            ft_table = tune.load_cache(4, path=ft)
+        finally:
+            tune._cache_table, tune._cache_origin, tune._cache_combos = saved
+    log(f"  4 ranks on {rec['device']}, islands {rec['islands']}, tiers "
+        f"{rec['tiers']}; tune sources {rec['sources']}; moe_ffn at d_model "
+        f"{rec['d_model']}, d_ff {rec['d_ff']}, {rec['tokens']} tokens a "
+        f"rank, capacity {rec['capacity']} (dispatch buffer "
+        f"{rec['dispatch_bytes']} B a rank); auto picks {rec['auto_pick']}")
+    log("  moe_ffn forward, ms (slowest rank's median of "
+        f"{rec['reps']}): " + ", ".join(
+            f"{k} {v:.4f} (max |y - exact| {rec['moe_max_abs_err'][k]:.3e})"
+            for k, v in rec["moe_ms"].items())
+        + f"; bit for bit the exact route: {rec['moe_bit_for_bit']}")
+    log("  alltoall alone on the dispatch buffer, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["alltoall_ms"].items())
+        + " (each bit for bit its simulator)")
+    for k, v in rec["leg"].items():
+        log(f"  leg allreduce {k}, {moe_world.LEG_BYTES if on_card else 65536}"
+            f" B a rank: {v['ms']:.4f} ms, {v['check']} its simulator "
+            f"(rel err {v['rel_err']:.3e}); launches over {v['calls']} calls "
+            f"on all ranks {v['launches_all_ranks']}")
+    r, c = rec["recorder_ms"], rec["call_trace_us"]
+    log(f"  recorder (medians of {moe_world.REC_ROUNDS} rounds): exact "
+        f"alltoall {r['alltoall_on']:.4f} ms on, {r['alltoall_off']:.4f} off;"
+        f" 4 KiB allreduce {r['allreduce_4KiB_on']:.4f} on, "
+        f"{r['allreduce_4KiB_off']:.4f} off; rank 0's rounds "
+        f"{rec['recorder_rounds_rank0']}; CallTrace alone {c['on']:.3f} us "
+        f"on, {c['off']:.3f} off; events per rank {rec['events_per_rank']},"
+        f" dropped {rec['dropped_per_rank']}")
+    log(f"  report: {stats['total_events']} events, {len(rows)} rows, 0 "
+        f"dropped; ici rows {len(ici)}; trace valid; from-trace cache "
+        f"{ft_table}; tuner {tune_secs:.1f} s, job {job_secs:.1f} s [{card}]")
+    return dict(rec, winners=winners, from_trace=ft_table,
+                tune_seconds=tune_secs, job_seconds=job_secs)
+
+
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
     parameters and at the stiff viscosity."""
@@ -1951,7 +2105,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-29 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-30 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -2103,6 +2257,10 @@ def main(argv=None):
     log(f"phase 29: path (k), the world-tier solver on {GRID[0]}x{GRID[1]} "
         f"world ranks, {DAYS} day at {shape} [{card}]")
     path_k(dev, a, shape, card)
+    log(f"phase 30: path (l), the tuner, then moe_ffn and the alltoall "
+        f"family on {WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS} with "
+        f"the recorder [{card}]")
+    path_l(on_card, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:

@@ -49,7 +49,17 @@ Ported so far:
   and packs the quantized wire frame with ``csrc/quant_pack.cu``;
 - the world-tier shallow-water solver
   (``models/shallow_water_world.py``): a rank per block, its halos on
-  ``neighbor_exchange``.
+  ``neighbor_exchange``;
+- the world alltoall family (``algo="qalltoall"``, ``"halltoall"``,
+  ``"hqalltoall"``, ``compression="int8"``) and ``moe_ffn`` on a world
+  comm (``parallel/moe.py``);
+- observability and tuning on the world tier: ``MPI4JAX_TPU_DEBUG``'s
+  debug lines (``utils/tracing.py``), the recorder, stats and Chrome
+  traces (``obs/``, ``runtime.launch --trace``, ``python -m
+  mpi4jax_tpu_torch.profile``), and the tune layers above the default
+  table (the persistent cache, ``set_algorithm``,
+  ``MPI4JAX_TPU_COLL_ALGO``; ``python -m mpi4jax_tpu_torch.tune``, also
+  ``--from-trace``), each reading and writing the JAX package's formats.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.

@@ -26,6 +26,12 @@ callbacks into the native transport.  Here each op is a staged function:
 
 Program order is the ordering contract: every rank calls the ops of a comm
 in the same order, as in the JAX package's ordered effects.
+
+**tracing.**  Each staged op runs inside ``utils/tracing.CallTrace``, as
+the JAX package's 13 host sites do (``:931-1160`` there): the debug lines
+of ``MPI4JAX_TPU_DEBUG`` and, when the recorder is armed, one ops-layer
+span per call, timing the whole call as the caller sees it (staging, the
+native call, the copy back).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 
 from ..runtime import bridge
 from ..utils import dtypes as _dtypes
+from ..utils import tracing
 from ..utils.algos import ALGO_CODES
 from ..utils.status import ANY_TAG
 from .reduce_ops import OP_CODES, ReduceOp
@@ -82,95 +89,156 @@ def _algo_code(algo) -> int:
     return ALGO_CODES[algo] if algo is not None else 0
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+_OP_NAMES = {code: name for name, code in OP_CODES.items()}
+
+
+def _coll_algo_detail(comm, opname, nbytes):
+    """The algorithm name for a debug line; the probe never takes down the
+    op."""
+    try:
+        return comm.coll_algo(opname, nbytes)
+    except Exception:
+        return "?"
+
+
+def _algo_detail(comm, opname, nbytes, algo):
+    if algo is not None:
+        return f"algo {algo} (forced)"
+    return f"algo {_coll_algo_detail(comm, opname, nbytes)}"
+
+
 # ---------------- the staged ops (no autograd) ----------------
 
 
 def _allreduce(x, comm, op_code: int, algo=None):
-    send = _to_host(x)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.allreduce_raw(comm.handle, _np(send), _np(out), _code(send),
-                         op_code, algo=_algo_code(algo))
-    return _to_device(out, comm)
+    nb = _nbytes(x)
+    with tracing.CallTrace(
+            comm.rank(), "Allreduce",
+            lambda: f"op {_OP_NAMES[op_code]} "
+                    + _algo_detail(comm, "allreduce", nb, algo),
+            nbytes=nb):
+        send = _to_host(x)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.allreduce_raw(comm.handle, _np(send), _np(out), _code(send),
+                             op_code, algo=_algo_code(algo))
+        return _to_device(out, comm)
 
 
 def _allgather(x, comm):
-    send = _to_host(x)
-    out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype, comm)
-    bridge.allgather_raw(comm.handle, _np(send), _np(out))
-    return _to_device(out, comm)
+    nb = _nbytes(x)
+    with tracing.CallTrace(
+            comm.rank(), "Allgather",
+            lambda: _algo_detail(comm, "allgather", nb, None), nbytes=nb):
+        send = _to_host(x)
+        out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype,
+                          comm)
+        bridge.allgather_raw(comm.handle, _np(send), _np(out))
+        return _to_device(out, comm)
 
 
 def _gather(x, root, comm):
-    send = _to_host(x)
-    if comm.rank() != root:
-        bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank())
-        return x.detach().clone()  # the non-root result is its input
-    out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype, comm)
-    bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank(),
-                  out=_np(out))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Gather", f"root {root}", peer=root,
+                           nbytes=_nbytes(x)):
+        send = _to_host(x)
+        if comm.rank() != root:
+            bridge.gather(comm.handle, _np(send), comm.size(), root,
+                          comm.rank())
+            return x.detach().clone()  # the non-root result is its input
+        out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype,
+                          comm)
+        bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank(),
+                      out=_np(out))
+        return _to_device(out, comm)
 
 
 def _reduce(x, op_code, root, comm):
-    send = _to_host(x)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.reduce(comm.handle, _np(send), op_code, root, out=_np(out),
-                  dtype_code=_code(send))
-    if comm.rank() != root:
-        return x.detach().clone()  # the transport hands the input back
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Reduce",
+                           f"op {_OP_NAMES[op_code]} root {root}", peer=root,
+                           nbytes=_nbytes(x)):
+        send = _to_host(x)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.reduce(comm.handle, _np(send), op_code, root, out=_np(out),
+                      dtype_code=_code(send))
+        if comm.rank() != root:
+            return x.detach().clone()  # the transport hands the input back
+        return _to_device(out, comm)
 
 
 def _scan(x, op_code, comm):
-    send = _to_host(x)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.scan(comm.handle, _np(send), op_code, out=_np(out),
-                dtype_code=_code(send))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Scan", f"op {_OP_NAMES[op_code]}",
+                           nbytes=_nbytes(x)):
+        send = _to_host(x)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.scan(comm.handle, _np(send), op_code, out=_np(out),
+                    dtype_code=_code(send))
+        return _to_device(out, comm)
 
 
 def _bcast(x, root, comm):
-    send = _to_host(x)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.bcast(comm.handle, _np(send), root, out=_np(out))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Bcast", f"root {root}", peer=root,
+                           nbytes=_nbytes(x)):
+        send = _to_host(x)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.bcast(comm.handle, _np(send), root, out=_np(out))
+        return _to_device(out, comm)
 
 
 def _scatter(x, root, comm):
-    send = _to_host(x)
-    out = _host_empty(send.shape[1:], send.dtype, comm)
-    bridge.scatter(comm.handle, _np(send), root, out=_np(out))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Scatter", f"root {root}", peer=root,
+                           nbytes=_nbytes(x)):
+        send = _to_host(x)
+        out = _host_empty(send.shape[1:], send.dtype, comm)
+        bridge.scatter(comm.handle, _np(send), root, out=_np(out))
+        return _to_device(out, comm)
 
 
 def _alltoall(x, comm, algo=None):
-    send = _to_host(x)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.alltoall(comm.handle, _np(send), out=_np(out),
-                    algo=_algo_code(algo), dtype_code=_code(send))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Alltoall",
+                           f"algo {algo} (forced)" if algo is not None
+                           else "", nbytes=_nbytes(x)):
+        send = _to_host(x)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.alltoall(comm.handle, _np(send), out=_np(out),
+                        algo=_algo_code(algo), dtype_code=_code(send))
+        return _to_device(out, comm)
 
 
 def _shift2(stack, lo, hi, tag, comm):
-    send = _to_host(stack)
-    out = _host_empty(send.shape, send.dtype, comm)
-    bridge.shift2(comm.handle, _np(send), lo, hi, tag, out=_np(out))
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Shift2", f"lo {lo} hi {hi}",
+                           peer=hi, nbytes=_nbytes(stack), tag=tag):
+        send = _to_host(stack)
+        out = _host_empty(send.shape, send.dtype, comm)
+        bridge.shift2(comm.handle, _np(send), lo, hi, tag, out=_np(out))
+        return _to_device(out, comm)
 
 
 def _recv(x, source, tag, comm, status):
-    out = _host_empty(x.shape, x.dtype, comm)
-    if status is None:
-        # strict: the arrived size must equal the buffer exactly
-        bridge.recv(comm.handle, _np(out), source, tag)
-    else:
-        _, src, tg, cnt = bridge.recv_status(comm.handle, _np(out), source,
-                                             tag)
-        status._fill(src, tg, cnt)
-    return _to_device(out, comm)
+    with tracing.CallTrace(comm.rank(), "Recv", f"from {source} tag {tag}",
+                           peer=source, nbytes=_nbytes(x), tag=tag):
+        out = _host_empty(x.shape, x.dtype, comm)
+        if status is None:
+            # strict: the arrived size must equal the buffer exactly
+            bridge.recv(comm.handle, _np(out), source, tag)
+        else:
+            _, src, tg, cnt = bridge.recv_status(comm.handle, _np(out),
+                                                 source, tag)
+            status._fill(src, tg, cnt)
+        return _to_device(out, comm)
 
 
 def _sendrecv(x, source, dest, sendtag, recvtag, status, comm):
+    with tracing.CallTrace(comm.rank(), "Sendrecv",
+                           f"to {dest} from {source}", peer=dest,
+                           nbytes=2 * _nbytes(x), tag=sendtag):
+        return _sendrecv_staged(x, source, dest, sendtag, recvtag, status,
+                                comm)
+
+
+def _sendrecv_staged(x, source, dest, sendtag, recvtag, status, comm):
     send = _to_host(x)
     out = _host_empty(send.shape, send.dtype, comm)
     if status is None and sendtag == recvtag:
@@ -319,11 +387,14 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm, tag=60):
 
 
 def barrier(comm):
-    bridge.barrier(comm.handle)
+    with tracing.CallTrace(comm.rank(), "Barrier", ""):
+        bridge.barrier(comm.handle)
 
 
 def send(x, dest, tag, comm):
-    bridge.send(comm.handle, _np(_to_host(x)), dest, tag)
+    with tracing.CallTrace(comm.rank(), "Send", f"to {dest} tag {tag}",
+                           peer=dest, nbytes=_nbytes(x), tag=tag):
+        bridge.send(comm.handle, _np(_to_host(x)), dest, tag)
 
 
 def recv(x, source, tag, comm, status=None):

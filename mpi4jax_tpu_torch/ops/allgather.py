@@ -7,6 +7,7 @@ transport's allgather (``_world_impl.allgather``).
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -25,4 +26,5 @@ def allgather(x, *, comm=None, token=None):
         return _world_impl.allgather(x, comm)
     _validation.check_tensor("allgather", x, comm)
     _validation.check_no_token("allgather", token, comm, x)
+    _tracing.trace_mesh_op(comm, "Allgather")
     return _mesh_impl.allgather(x, comm)

@@ -16,6 +16,7 @@ schedule under ``MPI4JAX_TPU_COLL_QUANT=deny``.
 from __future__ import annotations
 
 from ..utils import algos as _algos
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
@@ -62,6 +63,7 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
 
         return quantized_allreduce_sum(x, comm)
     _validation.check_reduce_dtype("allreduce", op, x, comm)
+    _tracing.trace_mesh_op(comm, "Allreduce", f"op {op.name}")
     return _mesh_impl.allreduce(x, op, comm)
 
 

@@ -1,20 +1,20 @@
-"""alltoall — transpose chunks across ranks (the FFT-slab move).
+"""alltoall — transpose chunks across ranks (the FFT-slab and MoE move).
 
 The counterpart of ``mpi4jax_tpu/ops/alltoall.py``.  On the mesh tier one
 launch of the alltoall kernel (``_collectives.alltoall``), differentiable
-(the op is its own transpose); on the world tier the transport's exact
-pairwise exchange (``_world_impl.alltoall``).
+(the op is its own transpose); on the world tier the transport's exchange
+(``_world_impl.alltoall``): the exact pairwise one, or a schedule of the
+alltoall family forced with ``algo=`` (``qalltoall``, ``halltoall``,
+``hqalltoall``) or picked by ``compression="int8"``
+(``quantized.native_quant_alltoall``).
 """
 
 from __future__ import annotations
 
 from ..utils import algos as _algos
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
-
-_NOT_PORTED = ("on a world comm is not ported: its simulators "
-               "(simulate_qalltoall, halltoall, hqalltoall) wait for "
-               "ROADMAP.md §1 item 6")
 
 
 def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
@@ -27,10 +27,18 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
     ``ValueError``).  ``algo=`` and ``compression=`` are checked as in the
     JAX package: an unknown value raises ``ValueError``, and a valid one
     raises ``NotImplementedError`` on the mesh tier, as there (both belong
-    to the world-tier transport).  On the world tier ``algo="ring"`` or
-    ``"auto"`` runs the exact exchange; the quantized and hierarchical
-    schedules and ``compression="int8"`` raise ``NotImplementedError``
-    naming ROADMAP.md.  So does ``token=``.
+    to the world-tier transport).  On the world tier ``algo=`` forces the
+    schedule of this call (every rank forces the same one): ``"ring"`` the
+    exact exchange, ``"qalltoall"`` every off-rank chunk through the int8
+    codec, ``"halltoall"`` the hierarchical exchange (a permutation, bit
+    for bit the flat one), ``"hqalltoall"`` its leader leg quantized.
+    ``compression="int8"`` (real floating dtypes, about 1e-2 relative error
+    on off-rank chunks, the own chunk exact) picks ``qalltoall``, or the
+    exact exchange under ``MPI4JAX_TPU_COLL_QUANT=deny``.  The transport
+    applies the gates (``COLL_QUANT=deny|force``, ``MPI4JAX_TPU_HIER=
+    deny``) and degrades integer payloads to the exact exchange; bf16 rides
+    its f32 staging.  The result has no gradient on the world tier, as in
+    the JAX package.  ``token=`` raises ``NotImplementedError``.
     """
     comm = _validation.resolve_comm(comm)
     world = _validation.is_world(comm)
@@ -60,19 +68,18 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
                 "compression='int8' rides the world-tier transport wire "
                 "format; the mesh tier has one alltoall kernel",
                 op="alltoall", comm=comm, x=x, exc=NotImplementedError)
-        from .quantized import check_quantizable
+        from .quantized import check_quantizable, native_quant_alltoall
 
         check_quantizable(x, comm)
-        _validation.fail(f"compression='int8' {_NOT_PORTED}", op="alltoall",
-                         comm=comm, x=x, exc=NotImplementedError)
+        # None: the exact exchange (COLL_QUANT=deny), the same process-wide
+        # signal on every rank
+        algo = native_quant_alltoall()
     _validation.check_no_token("alltoall", token, comm, x)
     if not world:
+        _tracing.trace_mesh_op(comm, "Alltoall")
         return _mesh_impl.alltoall(x, comm)
     from . import _world_impl
 
-    if algo in _algos.A2A_ALGOS:
-        _validation.fail(f"algo={algo!r} {_NOT_PORTED}", op="alltoall",
-                         comm=comm, x=x, exc=NotImplementedError)
     _validation.check_wire_dtype("alltoall", x, comm)
     if x.dim() < 1 or x.shape[0] != comm.size():
         _validation.fail(

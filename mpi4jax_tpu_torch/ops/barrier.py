@@ -10,6 +10,7 @@ before it is not waited for).
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -23,4 +24,5 @@ def barrier(*, comm=None, token=None):
 
         _world_impl.barrier(comm)
         return None
+    _tracing.trace_mesh_op(comm, "Barrier")
     _mesh_impl.barrier(comm)

@@ -8,6 +8,7 @@ transport's broadcast (``_world_impl.bcast``).
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -28,4 +29,5 @@ def bcast(x, root=0, *, comm=None, token=None):
     _validation.check_tensor("bcast", x, comm)
     _validation.check_no_token("bcast", token, comm, x)
     root = _validation.check_root("bcast", root, comm)
+    _tracing.trace_mesh_op(comm, "Bcast", f"root {root}")
     return _mesh_impl.bcast(x, root, comm)

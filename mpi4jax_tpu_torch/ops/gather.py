@@ -9,6 +9,7 @@ other rank its input back (the reference's contract).
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -29,4 +30,5 @@ def gather(x, root=0, *, comm=None, token=None):
     _validation.check_tensor("gather", x, comm)
     _validation.check_no_token("gather", token, comm, x)
     root = _validation.check_root("gather", root, comm)
+    _tracing.trace_mesh_op(comm, "Gather", f"root {root}")
     return _mesh_impl.gather(x, root, comm)

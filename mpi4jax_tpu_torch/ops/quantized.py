@@ -365,3 +365,16 @@ def native_quant_algo(comm, x) -> "str | None":
     if config.quant_mode() == "deny":
         return None
     return tune.quantized_algorithm(x.numel() * x.element_size())
+
+
+def native_quant_alltoall() -> "str | None":
+    """The schedule ("qalltoall") that carries a world
+    ``compression="int8"`` alltoall, or None for the exact exchange under
+    ``MPI4JAX_TPU_COLL_QUANT=deny``: unlike the allreduce there is no
+    Python schedule to fall back to (``mpi4jax_tpu/ops/quantized.py:
+    136-161``).  The gate is process-wide, the same on every rank."""
+    from ..utils import config
+
+    if config.quant_mode() == "deny":
+        return None
+    return "qalltoall"

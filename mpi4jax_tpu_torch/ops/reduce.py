@@ -9,6 +9,7 @@ and the other ranks their input back.
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
@@ -32,4 +33,5 @@ def reduce(x, op=SUM, root=0, *, comm=None, token=None):
     _validation.check_no_token("reduce", token, comm, x)
     root = _validation.check_root("reduce", root, comm)
     _validation.check_reduce_dtype("reduce", op, x, comm)
+    _tracing.trace_mesh_op(comm, "Reduce", f"op {op.name} root {root}")
     return _mesh_impl.reduce(x, op, root, comm)

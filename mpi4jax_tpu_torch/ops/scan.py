@@ -8,6 +8,7 @@ as an allgather and a local prefix fold (``_world_impl.scan``).
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
@@ -28,4 +29,5 @@ def scan(x, op=SUM, *, comm=None, token=None):
     _validation.check_tensor("scan", x, comm)
     _validation.check_no_token("scan", token, comm, x)
     _validation.check_reduce_dtype("scan", op, x, comm)
+    _tracing.trace_mesh_op(comm, "Scan", f"op {op.name}")
     return _mesh_impl.scan(x, op, comm)

@@ -9,6 +9,7 @@ transport's scatter; every rank passes a ``(size, ...)`` buffer there too.
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -32,4 +33,5 @@ def scatter(x, root=0, *, comm=None, token=None):
     _validation.check_tensor("scatter", x, comm)
     _validation.check_no_token("scatter", token, comm, x)
     root = _validation.check_root("scatter", root, comm)
+    _tracing.trace_mesh_op(comm, "Scatter", f"root {root}")
     return _mesh_impl.scatter(x, root, comm)

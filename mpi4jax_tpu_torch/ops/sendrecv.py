@@ -12,6 +12,7 @@ gradient sends the cotangent back along each edge.
 
 from __future__ import annotations
 
+from ..utils import tracing as _tracing
 from ..utils import validation as _validation
 from . import _mesh_impl
 
@@ -71,6 +72,7 @@ def sendrecv(x, *, perm=None, shift=None, wrap=True, source=None, dest=None,
     if sendtag != 0 or (recvtag is not None and recvtag != sendtag):
         raise ValueError("message tags are world-tier only")
     pairs = _resolve_perm(comm, perm, shift, wrap)
+    _tracing.trace_mesh_op(comm, "Sendrecv", f"perm {pairs}")
     return _mesh_impl.sendrecv(x, pairs, comm)
 
 

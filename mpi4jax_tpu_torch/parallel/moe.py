@@ -7,12 +7,18 @@ FFN runs per rank, and a second ``alltoall`` brings the outputs home.
 Each rank reserves ``capacity`` slots per expert; tokens past it are
 dropped and come back as zeros (the Switch capacity rule).
 
-Tensors have the mesh's rank dimensions leading: tokens ``(*lead, t,
-d)``; the parameters hold one entry per rank (``w_gate`` a replica each,
-``w_in``/``b_in``/``w_out``/``b_out`` that rank's expert).  Both exchanges
-are the mesh ``alltoall`` front (one launch of the alltoall kernel on the
-card); ``compression=`` and ``algo=`` pass straight to it and so raise on a
-mesh comm, as in the JAX package.  The binning is
+On a mesh comm the tensors have the mesh's rank dimensions leading:
+tokens ``(*lead, t, d)``; the parameters hold one entry per rank
+(``w_gate`` a replica each, ``w_in``/``b_in``/``w_out``/``b_out`` that
+rank's expert), and both exchanges are the mesh ``alltoall`` front (one
+launch of the alltoall kernel on the card).  On a world comm (one process
+per rank) ``x`` is this rank's ``(t, d)`` tokens and ``params`` this
+rank's gate replica and expert, as in the JAX package
+(``mpi4jax_tpu/parallel/moe.py:34-124``): the exchanges are the world
+``alltoall`` through the transport, and ``compression=`` and ``algo=``
+pass straight to it (``"int8"`` for the quantized dispatch wire,
+``"qalltoall"``/``"halltoall"``/``"hqalltoall"`` to force a schedule); on
+a mesh comm they raise, as in the JAX package.  The binning is
 ``index_put(..., accumulate=True)``: a slot holds at most one kept token,
 and dropped tokens add zeros, so the sums are exact in any order.
 """
@@ -26,11 +32,18 @@ import torch
 
 from ..ops.alltoall import alltoall
 from ..utils.device import resolve_device
+from ..utils.validation import is_world
 from .mesh import get_default_comm
 
 
 def _resolve(comm):
     return comm if comm is not None else get_default_comm()
+
+
+def _lead(comm) -> tuple:
+    """The rank dimensions in front of each rank's tensors: the mesh
+    layout's, none on a world comm."""
+    return () if is_world(comm) else tuple(comm.layout_shape)
 
 
 def expert_capacity(tokens: int, n_experts: int,
@@ -66,7 +79,7 @@ def dispatch(x, expert_idx, capacity: int, *, comm=None, compression=None,
     """
     comm = _resolve(comm)
     size = comm.size()
-    lead = comm.layout_shape
+    lead = _lead(comm)
     t, d = x.shape[len(lead):]
     idx = expert_idx.reshape(-1, t).long()
     oh = torch.nn.functional.one_hot(idx, size)
@@ -93,7 +106,7 @@ def combine(expert_out, route, *, comm=None, compression=None, algo=None):
     the ranks that sent the tokens, in token order; dropped tokens are
     zeros."""
     comm = _resolve(comm)
-    lead = comm.layout_shape
+    lead = _lead(comm)
     idx, pos_c, keep = route
     back = alltoall(expert_out, comm=comm, compression=compression,
                     algo=algo)
@@ -112,11 +125,12 @@ def moe_ffn(x, params, *, comm=None, capacity_factor: float = 1.25,
     ``x``: ``(*lead, tokens, d_model)``, each rank's tokens.  ``params``:
     ``w_gate (*lead, d_model, size)`` (a replica per rank) and each rank's
     expert ``w_in (*lead, d_model, d_ff)``, ``b_in``, ``w_out (*lead,
-    d_ff, d_model)``, ``b_out`` (see :func:`init_moe_params`).
+    d_ff, d_model)``, ``b_out`` (see :func:`init_moe_params`); ``lead`` is
+    empty on a world comm.
     """
     comm = _resolve(comm)
     size = comm.size()
-    lead = comm.layout_shape
+    lead = _lead(comm)
     t, d = x.shape[len(lead):]
     idx, prob, _ = router_top1(x, params["w_gate"])
     cap = expert_capacity(t, size, capacity_factor)
@@ -154,17 +168,21 @@ def init_moe_params(d_model: int, d_ff: int, n_experts: int, seed: int = 0,
     }
 
 
-def params_from_numpy(per_rank, device=None) -> dict:
+def params_from_numpy(per_rank, device=None, rank=None) -> dict:
     """MoE parameters as tensors on ``device`` (default ``cuda:0``), one
     entry per rank of a 1-D mesh: ``per_rank`` is either a list of the JAX
     package's per-rank dicts (``init_moe_params(key, ..., expert_rank=r)``
     for each rank r, through ``np.asarray``), stacked here over the ranks,
-    or a dict already stacked (the port's ``init_moe_params``)."""
+    or a dict already stacked (the port's ``init_moe_params``).  With
+    ``rank`` (a world comm's rank), only that rank's slice: its gate
+    replica and its expert, the JAX world tier's per-rank dict."""
     dev = resolve_device(device)
     if isinstance(per_rank, dict):
         stacked = {k: np.asarray(v) for k, v in per_rank.items()}
     else:
         stacked = {k: np.stack([np.asarray(p[k]) for p in per_rank])
                    for k in per_rank[0]}
+    if rank is not None:
+        stacked = {k: v[int(rank)] for k, v in stacked.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in stacked.items()}

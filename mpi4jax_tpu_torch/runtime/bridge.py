@@ -12,9 +12,16 @@ transport has one), the leg's hook in front of the native allreduce, and
 the transport's own int8 codec (``quant_pack``).  The argument layouts and
 output shapes are those of the JAX package's bridge (``:1103-1590``
 there); a function that fills a result takes its buffer as ``out``, so the
-world tier can hand in pinned host memory.  The tune cache and overrides,
-observability, live re-tuning and plan execution are not ported
-(ROADMAP.md).
+world tier can hand in pinned host memory.  At comm creation the bridge
+installs the tune layers (``tune.install``: the default table, the
+persistent cache, the API and environment overrides) and, when
+``MPI4JAX_TPU_TRACE`` is set or ``obs.start()`` ran, arms the recorder
+after a clock-alignment handshake and schedules this rank's dump at
+interpreter exit (``_install_obs``), as ``runtime/bridge.py:551-563,
+833-880`` there; the native event ring's entry points are bound here and
+decoded by ``obs/_native.py``.  ``MPI4JAX_TPU_DEBUG`` turns on the
+transport's own debug lines (``tpucomm_set_logging``).  Live re-tuning and
+plan execution are not ported (ROADMAP.md).
 
 The build.  The transport is ``native/tpucomm.cc``, built transport-only
 (no XLA FFI) with the JAX package's flags (``bridge.py:45-52`` there) into
@@ -173,10 +180,20 @@ def get_lib() -> ctypes.CDLL:
             ("tpucomm_quant_packed_bytes", i64, [i64]),
             ("tpucomm_quant_pack", c_int, [ptr, i64, c_int, ptr]),
             ("tpucomm_last_error", ctypes.c_char_p, []),
-            ("tpucomm_abort_all", None, [])):
+            ("tpucomm_abort_all", None, []),
+            ("tpucomm_set_logging", None, [c_int]),
+            ("tpucomm_obs_enable", None, [c_int, i64]),
+            ("tpucomm_obs_counts", None, [i64p, i64p]),
+            ("tpucomm_obs_drain", i64, [ptr, i64]),
+            ("tpucomm_obs_peek", i64, [ptr, i64, i64p, i64p]),
+            ("tpucomm_obs_clock", ctypes.c_double, []),
+            ("tpucomm_link_counters", None, [i64p] * 6),
+            ("tpucomm_uring_status", ctypes.c_char_p, [])):
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = args
+    if config.debug_enabled():
+        lib.tpucomm_set_logging(1)
     _lib = lib
     return lib
 
@@ -215,12 +232,11 @@ _topo_subcomms: dict = {}
 
 def comm_init(rank: int, size: int, coord: str, device=None) -> int:
     """Connect this rank's world comm (collective over the world), run
-    topology discovery, install the default decision table
-    (``tune.install``) and return the native handle.  ``device`` is where
+    topology discovery, install the tune layers (``tune.install``), arm the
+    recorder when asked (``_install_obs``) and return the native handle.  ``device`` is where
     the world's tensors live: the leg runs its kernels there."""
-    from .. import tune
+    from .. import obs, tune
 
-    tune.check_knobs()
     lib = get_lib()
     _, _, port = coord.partition(":")
     hosts = os.environ.get("MPI4JAX_TPU_HOSTS", "")
@@ -231,7 +247,55 @@ def comm_init(rank: int, size: int, coord: str, device=None) -> int:
     if size > 1 and config.topo_mode() != "off":
         topology = _install_topology(lib, handle, rank, size, device)
     tune.install(size, topology=topology)
+    # arming must agree across ranks: the alignment handshake is
+    # collective (the launcher sets MPI4JAX_TPU_TRACE on every rank)
+    if config.trace_path() is not None or obs.enabled():
+        _install_obs(lib, handle, rank, size)
     return handle
+
+
+_obs_dump_registered = False
+
+
+def _install_obs(lib, handle, rank: int, size: int) -> None:
+    """Align this rank's clock, arm the recorder and schedule the dump at
+    interpreter exit.  Collective: a barrier, then every rank samples its
+    unix clock and the samples are allgathered; the median minus the own
+    sample is this rank's offset onto the job timeline.  It runs before
+    the recorder starts, so its own ops are not recorded."""
+    global _obs_dump_registered
+    import time
+
+    from .. import obs
+
+    offset_s = 0.0
+    if size > 1:
+        barrier(handle)
+        t_local = time.time()
+        all_t = np.sort(allgather(handle, np.array([t_local], np.float64),
+                                  size).ravel())
+        offset_s = float(all_t[size // 2]) - t_local
+    obs.start(lib=lib, rank=rank, size=size, clock_offset_s=offset_s)
+    if not _obs_dump_registered:
+        _obs_dump_registered = True
+        import atexit
+
+        atexit.register(_dump_obs_at_exit)
+
+
+def _dump_obs_at_exit() -> None:
+    base = config.trace_path()
+    if base is None:
+        return
+    try:
+        from .. import obs
+
+        path = obs.dump(base)
+        print(f"[obs] recording written to {path}", file=sys.stderr,
+              flush=True)
+    except Exception as e:  # a failed dump must not mask the exit code
+        print(f"[obs] recording dump failed: {e}", file=sys.stderr,
+              flush=True)
 
 
 def _install_topology(lib, handle, rank: int, size: int, device):

@@ -1,7 +1,7 @@
 """Launch a program as N world ranks, one process each.
 
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
-        [--port P] [--timeout S] prog.py [args...]
+        [--port P] [--timeout S] [--trace out.json] prog.py [args...]
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 -m package.module [-- args...]
 
 The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
@@ -18,6 +18,11 @@ share this host; on a machine with one card they all use it.
 - ``--timeout S``: after S seconds the whole group is reaped the same way
   and the launcher exits 124.  SIGTERM to the launcher reaps the group and
   exits 143.
+- ``--trace OUT.json``: every rank records its per-op events
+  (``MPI4JAX_TPU_TRACE``, ``obs/``) and dumps ``OUT.json.rank<r>.json`` at
+  exit; after the job the launcher merges the parts into one
+  Perfetto-loadable Chrome trace at ``OUT.json`` (stale parts at that path
+  are removed first), as ``mpi4jax_tpu/runtime/launch.py:351-390`` there.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ def _terminate_group(procs):
 
 
 def rank_env(rank: int, size: int, base_port: int, jobid: str,
-             fake_hosts=None) -> dict:
+             fake_hosts=None, trace=None) -> dict:
     """The environment of one rank."""
     env = dict(os.environ)
     env["MPI4JAX_TPU_RANK"] = str(rank)
@@ -78,7 +83,49 @@ def rank_env(rank: int, size: int, base_port: int, jobid: str,
     env["MPI4JAX_TPU_JOBID"] = jobid
     if fake_hosts:
         env["MPI4JAX_TPU_FAKE_HOSTS"] = fake_hosts
+    if trace:
+        env["MPI4JAX_TPU_TRACE"] = trace
     return env
+
+
+def _remove_stale_parts(trace: str) -> None:
+    """Parts left at ``trace`` by an earlier run (perhaps of another world
+    size) must not leak into this run's merge or ``tune --from-trace``."""
+    import glob
+
+    for stale in glob.glob(f"{glob.escape(trace)}.rank*.json"):
+        try:
+            os.unlink(stale)
+        except OSError:
+            pass
+
+
+def _merge_trace(out_path: str, np_: int) -> None:
+    """Merge the ranks' recordings into one Chrome trace at ``out_path``.
+    Best effort: a failed job may have dumped only some parts, and the
+    line says how many were found."""
+    import json
+
+    from .. import obs
+
+    parts = obs.part_paths(out_path)
+    if not parts:
+        print(f"launch: --trace: no recordings found at "
+              f"{out_path}.rank*.json (did the ranks reach comm init?)",
+              file=sys.stderr, flush=True)
+        return
+    try:
+        merged = obs.merge_files(parts)
+        with open(out_path, "w") as f:
+            json.dump(merged, f)
+        spans = sum(1 for e in merged["traceEvents"] if e.get("ph") == "X")
+        print(f"launch: --trace: merged {len(parts)}/{np_} rank "
+              f"recording(s), {spans} spans -> {out_path} "
+              "(load in https://ui.perfetto.dev)",
+              file=sys.stderr, flush=True)
+    except Exception as e:
+        print(f"launch: --trace: merge failed: {e}", file=sys.stderr,
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -97,6 +144,12 @@ def main(argv=None) -> int:
                     help="virtual host partition ('r0,r1|r2,r3': ranks 0-1 "
                          "and 2-3 form two islands), exported to every "
                          "rank as MPI4JAX_TPU_FAKE_HOSTS")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record every rank's per-op events "
+                         "(MPI4JAX_TPU_TRACE) and merge them into one "
+                         "Perfetto-loadable Chrome trace at OUT.json after "
+                         "the job; the ranks' parts stay beside it as "
+                         "OUT.json.rank<r>.json")
     ap.add_argument("-m", dest="module", action="store_true",
                     help="PROG is a module, run as each rank's program "
                          "(python -m)")
@@ -109,6 +162,9 @@ def main(argv=None) -> int:
     prog_args = args.args[1:] if args.args[:1] == ["--"] else args.args
     command = ["-m"] * args.module + [args.prog, *prog_args]
 
+    trace = os.path.abspath(args.trace) if args.trace else None
+    if trace:
+        _remove_stale_parts(trace)
     base_port = args.port or _free_port_block(args.np)
     # job-unique token for the transport's shared-memory names
     jobid = uuid.uuid4().hex[:16]
@@ -137,7 +193,7 @@ def main(argv=None) -> int:
             procs.append(subprocess.Popen(
                 [sys.executable, *command],
                 env=rank_env(rank, args.np, base_port, jobid,
-                             args.fake_hosts)))
+                             args.fake_hosts, trace)))
         in_spawn[0] = False
         if deferred:
             raise deferred[0]
@@ -175,6 +231,8 @@ def main(argv=None) -> int:
     finally:
         if main_thread:
             signal.signal(signal.SIGTERM, old_term)
+    if trace:
+        _merge_trace(trace, args.np)
     if first_fail is not None:
         print(f"launch: post-mortem: rank {first_fail[0]} failed first "
               f"(exit code {first_fail[1]})", file=sys.stderr, flush=True)

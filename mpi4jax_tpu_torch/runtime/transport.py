@@ -128,9 +128,8 @@ class WorldComm(CommBase):
     @property
     def handle(self) -> int:
         """The native communicator (connects on first use, then installs
-        the default decision table, ``tune.install``).  A knob of the
-        tuner that is not ported raises ``NotImplementedError`` before
-        anything connects."""
+        the tune layers, ``tune.install``, and arms the recorder when
+        ``MPI4JAX_TPU_TRACE`` is set, ``bridge.comm_init``)."""
         if self._handle is None:
             from . import bridge
 
@@ -169,6 +168,18 @@ class WorldComm(CommBase):
         from .. import topo
 
         return topo.get_topology(self.handle)
+
+    def coll_algo(self, op: str, nbytes: int) -> str:
+        """The algorithm the engine would run for ``op`` ("allreduce",
+        "allgather" or "alltoall") at ``nbytes`` on this comm: "shm" when
+        the same-host arena serves it, else the installed table's pick
+        after the gates (``tune``)."""
+        from .. import tune
+        from . import bridge
+
+        code = bridge.coll_algo_for(self.handle, tune.OP_KIND[op],
+                                    int(nbytes))
+        return tune.ALGO_NAMES.get(code, "auto")
 
     def __repr__(self):
         kind = "WorldComm" if self._parent is None else "SubComm"

@@ -20,8 +20,12 @@ every multi-member island backed by a card (tier ``"ici"``,
 3. the leader's bytes are broadcast over the island.
 
 On a CUDA device a failed build or launch of kernel 3 or 4 raises: the
-plain versions run only when the comm's device is the CPU.  The JAX leg's
-observability span is not ported (ROADMAP.md).  ``PHASE_SECONDS`` sums the
+plain versions run only when the comm's device is the CPU.  When the
+recorder is armed, each call records one ``Allreduce`` span over phase 1
+(the intra leg and the pack) with ``algo=`` the hierarchical schedule and
+``tier="ici"``, as the JAX leg's ``_record_leg`` (``:238-246`` there):
+stats count its bytes under ``tier_bytes`` and the tuner ignores it.
+``PHASE_SECONDS`` sums the
 host-clock seconds of each phase over the calls since it was last reset:
 the device phases end with a synchronize, so they hold their kernels.
 """
@@ -77,6 +81,14 @@ def _unpack_fold(frames: np.ndarray, order, count: int) -> np.ndarray:
         d = quantized.quant_unpack_ref(scales, frame[4 * nb:])
         acc = d if acc is None else (acc + d).astype(np.float32)
     return acc
+
+
+def _record_leg(algo_name: str, t0: float, dur: float, nbytes: int) -> None:
+    from ..obs import _recorder
+
+    if _recorder.enabled():
+        _recorder.record_span("Allreduce", t0, dur, nbytes=nbytes,
+                              algo=algo_name, tier="ici")
 
 
 def eligible(t, *, mode: Optional[str] = None) -> bool:
@@ -135,9 +147,9 @@ def maybe_allreduce(handle, buf, out, dtype_code: int, op_code: int,
     if not code:
         code = bridge.coll_algo_for(handle, 0, buf.nbytes)
     if code == algos.ALGO_CODES["hring"]:
-        leader_algo = algos.ALGO_CODES["ring"]
+        algo_name, leader_algo = "hring", algos.ALGO_CODES["ring"]
     elif code == algos.ALGO_CODES["htree"]:
-        leader_algo = algos.ALGO_CODES["rd"]
+        algo_name, leader_algo = "htree", algos.ALGO_CODES["rd"]
     else:
         return False
     if buf.dtype != np.float32:
@@ -151,6 +163,7 @@ def maybe_allreduce(handle, buf, out, dtype_code: int, op_code: int,
     clock = time.perf_counter
 
     # ---- phase 1: the intra leg on the card ------------------------
+    t0_unix = time.time()
     t0 = clock()
     if m > 1:
         rows = bridge.allgather(sub["intra"], buf.reshape(-1), m)
@@ -166,6 +179,7 @@ def maybe_allreduce(handle, buf, out, dtype_code: int, op_code: int,
     packed = _pack(island) if quant else None
     island_host = None if quant else island.cpu().numpy()
     t3 = clock()
+    _record_leg(algo_name, t0_unix, t3 - t0, buf.nbytes)
     PHASE_SECONDS["intra_allgather"] += t1 - t0
     PHASE_SECONDS["fold"] += t2 - t1
     PHASE_SECONDS["pack"] += t3 - t2

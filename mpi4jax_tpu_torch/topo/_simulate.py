@@ -17,7 +17,11 @@ held to it bit for bit.
   schedules, copies of ``mpi4jax_tpu/ops/quantized.py:319-377``;
 - ``simulate_tree_sum``: the binomial tree (native ``tree_allreduce``),
   which the JAX package has no model of: the world tier's forced ``tree``
-  is held to it.
+  is held to it;
+- ``simulate_qalltoall`` / ``simulate_halltoall`` / ``simulate_hqalltoall``:
+  the alltoall family, copies of ``mpi4jax_tpu/topo/_simulate.py:219-280``
+  (every off-rank chunk through the codec; the exact permutation; each
+  cross-island block one codec frame on the leader leg).
 """
 
 from __future__ import annotations
@@ -115,8 +119,9 @@ def simulate_tree_sum(inputs: Sequence[np.ndarray]) -> np.ndarray:
 
 
 def _qdq(x: np.ndarray) -> np.ndarray:
-    """The codec's quantize-dequantize round trip."""
-    return _q.quant_unpack_ref(*_q.quant_pack_ref(x))
+    """The codec's quantize-dequantize round trip, in ``x``'s shape."""
+    x = np.asarray(x)
+    return _q.quant_unpack_ref(*_q.quant_pack_ref(x)).reshape(x.shape)
 
 
 def simulate_qring_sum(parts: Sequence[np.ndarray]) -> np.ndarray:
@@ -228,3 +233,65 @@ def simulate_ici_q_sum(inputs: Sequence[np.ndarray],
         d = _q.quant_unpack_ref(scales, codes)
         acc = d if acc is None else (acc + d).astype(np.float32)
     return acc
+
+
+def simulate_qalltoall(inputs: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Bit-exact model of the native ``qalltoall`` f32 exchange:
+    ``inputs`` is one ``(size, count...)`` array per world rank; returns
+    each rank's output.  Every off-rank chunk rides the int8+scales wire
+    codec — the destination dequantizes the SENDER's packed bytes, so
+    rank consistency is by construction — while the own-rank chunk is a
+    local copy and stays exact.  bf16 callers model the native staging
+    by upcasting to f32 before and RNE-rounding after (the codec itself
+    always runs in f32)."""
+    n = len(inputs)
+    outs = []
+    for dst in range(n):
+        chunks = []
+        for src in range(n):
+            c = _f32(inputs[src][dst])
+            chunks.append(c.copy() if src == dst else _qdq(c))
+        outs.append(np.stack(chunks))
+    return outs
+
+
+def simulate_halltoall(inputs: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Model of the exact hierarchical alltoall: ``halltoall`` is a pure
+    permutation (every leg moves bytes verbatim), so its output is
+    bit-identical to the flat pairwise exchange regardless of the island
+    partition — which is exactly what this returns."""
+    n = len(inputs)
+    return [np.stack([_f32(inputs[src][dst]) for src in range(n)])
+            for dst in range(n)]
+
+
+def simulate_hqalltoall(inputs: Sequence[np.ndarray],
+                        islands: Sequence[Sequence[int]]
+                        ) -> List[np.ndarray]:
+    """Bit-exact model of ``hqalltoall``: intra-island chunks (own chunk
+    included) are exact; each cross-island block — all chunks from
+    island ``a`` to island ``b``, concatenated src-member-major in
+    member order — is quantized as ONE codec frame on the leader leg,
+    so the 256-element codec blocks span chunk boundaries exactly as
+    the native leader exchange packs them."""
+    n = len(inputs)
+    chunk_shape = _f32(inputs[0][0]).shape
+    count = int(np.prod(chunk_shape, dtype=np.int64)) if chunk_shape else 1
+    outs = [np.empty((n,) + chunk_shape, np.float32) for _ in range(n)]
+    for a, mem_a in enumerate(islands):
+        for b, mem_b in enumerate(islands):
+            if a == b:
+                for s in mem_a:
+                    for t in mem_b:
+                        outs[t][s] = _f32(inputs[s][t])
+                continue
+            block = np.concatenate([_f32(inputs[s][t]).reshape(-1)
+                                    for s in mem_a for t in mem_b])
+            d = _qdq(block)
+            i = 0
+            for s in mem_a:
+                for t in mem_b:
+                    outs[t][s] = d[i * count:(i + 1) * count].reshape(
+                        chunk_shape)
+                    i += 1
+    return outs

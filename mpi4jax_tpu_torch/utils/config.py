@@ -13,10 +13,23 @@ typo silently changes routing or numerics.
   card, ``topo/_ici_leg.py``);
 - ``MPI4JAX_TPU_FAKE_HOSTS``: the virtual host partition of one machine;
 - ``MPI4JAX_TPU_PLAN_BUCKET_KB``: the gradient bucket of
-  ``parallel/dp.py``, in KiB.
+  ``parallel/dp.py``, in KiB;
+- ``MPI4JAX_TPU_DEBUG``: per-call debug lines (``utils/tracing.py``), a
+  boolean flag;
+- ``MPI4JAX_TPU_TRACE``: arm the observability recorder (``obs/``) and
+  dump this rank's recording to ``<value>.rank<r>.json`` at exit (the
+  launcher's ``--trace`` sets it);
+- ``MPI4JAX_TPU_TRACE_BUF_KB``: the event rings' size in KB (default 256,
+  read by ``obs._recorder.default_capacity_events``);
+- ``MPI4JAX_TPU_TUNE_CACHE``: the full path of the persistent tune cache
+  (``tune.cache_path``);
+- ``MPI4JAX_TPU_COLL_ALGO``: the operator's algorithm override, the
+  strongest layer of ``tune``'s table (parsed by ``tune._env_table``).
 
-Plan execution (``MPI4JAX_TPU_PLAN``) is not ported; the port treats it as
-off.
+``knob_env`` stamps the resolved gates into tune caches and benchmark
+records, as the JAX package does.  Plan execution (``MPI4JAX_TPU_PLAN``)
+is not ported: ``plan_spec`` only parses it for that stamp, and the port
+runs as if it were off.
 """
 
 from __future__ import annotations
@@ -78,3 +91,66 @@ def plan_bucket_bytes() -> int:
         raise ValueError(
             f"cannot parse MPI4JAX_TPU_PLAN_BUCKET_KB={raw!r} as KB")
     return max(0, v) * 1024
+
+
+_TRUTHY = frozenset(("1", "true", "on", "yes", "y"))
+_FALSY = frozenset(("0", "false", "off", "no", "n", ""))
+
+
+def parse_bool(value: str, *, name: str = "<flag>") -> bool:
+    v = value.strip().lower()
+    if v in _TRUTHY:
+        return True
+    if v in _FALSY:
+        return False
+    raise ValueError(f"cannot parse boolean env var {name}={value!r}")
+
+
+def flag(name: str, default: bool = False) -> bool:
+    """A boolean knob."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return parse_bool(raw, name=name)
+
+
+def debug_enabled() -> bool:
+    """``MPI4JAX_TPU_DEBUG``: per-call debug lines."""
+    return flag("MPI4JAX_TPU_DEBUG")
+
+
+def trace_path() -> Optional[str]:
+    """``MPI4JAX_TPU_TRACE``: the recording's dump base path, or None
+    (the recorder stays off)."""
+    raw = os.environ.get("MPI4JAX_TPU_TRACE")
+    return raw if raw else None
+
+
+def uring_mode() -> str:
+    """``MPI4JAX_TPU_URING`` as "auto" | "0" | "1" (read natively; parsed
+    here for ``knob_env``)."""
+    return _choice("MPI4JAX_TPU_URING", "auto", ("auto", "0", "1"))
+
+
+def plan_spec() -> Optional[str]:
+    """``MPI4JAX_TPU_PLAN``: a plan-file path or enable flag, or None when
+    off.  Plan execution is not ported; this feeds ``knob_env`` only."""
+    raw = os.environ.get("MPI4JAX_TPU_PLAN", "").strip()
+    if not raw or raw.lower() in ("0", "false", "off", "no"):
+        return None
+    return raw
+
+
+def knob_env() -> dict:
+    """The resolved tuning-relevant knobs, stamped into tune caches and
+    ``obs.bench_record`` rows: the same keys and values as the JAX
+    package's ``knob_env``."""
+    return {
+        "MPI4JAX_TPU_COLL_ALGO":
+            os.environ.get("MPI4JAX_TPU_COLL_ALGO", "").strip(),
+        "MPI4JAX_TPU_COLL_QUANT": quant_mode(),
+        "MPI4JAX_TPU_HIER": hier_mode(),
+        "MPI4JAX_TPU_ICI_LEG": ici_leg_mode(),
+        "MPI4JAX_TPU_URING": uring_mode(),
+        "MPI4JAX_TPU_PLAN": plan_spec() or "0",
+    }

@@ -29,8 +29,10 @@ import pytest
 import torch
 
 import mpi4jax_tpu
+from mpi4jax_tpu import tune as jtune
 from mpi4jax_tpu.runtime import transport as jtransport
 from mpi4jax_tpu_torch import ops
+from mpi4jax_tpu_torch import tune as ttune
 from mpi4jax_tpu_torch.benchmarks import ici_leg
 from mpi4jax_tpu_torch.ops import quantized
 from mpi4jax_tpu_torch.runtime import bridge, transport
@@ -90,22 +92,30 @@ def test_world_front_checks_need_no_transport(monkeypatch):
         with pytest.raises(ValueError):
             ops.allreduce(x, comm=comm, **kw)
     # what stays unported raises NotImplementedError naming ROADMAP.md:
-    # token=, and the alltoall's quantized and hierarchical schedules
+    # token= (the alltoall family and MPI4JAX_TPU_COLL_ALGO are ported)
     rows = torch.ones(4, 2)
     for call in (lambda: ops.allreduce(x, comm=comm, token=object()),
                  lambda: ops.bcast(x, 0, comm=comm, token=object()),
                  lambda: ops.barrier(comm=comm, token=object()),
-                 lambda: ops.alltoall(rows, comm=comm, algo="qalltoall"),
-                 lambda: ops.alltoall(rows, comm=comm, algo="halltoall"),
-                 lambda: ops.alltoall(rows, comm=comm, algo="hqalltoall"),
-                 lambda: ops.alltoall(rows, comm=comm, compression="int8")):
+                 lambda: ops.alltoall(rows, comm=comm, token=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    # the tuner's operator override is refused at comm creation, before
-    # anything connects
+    # an allreduce schedule on the alltoall, and int8 with algo=, are
+    # refused by both fronts before any transport use
+    for kw in ({"algo": "qring"}, {"algo": "qalltoall",
+                                   "compression": "int8"}):
+        with pytest.raises(ValueError):
+            mpi4jax_tpu.alltoall(jnp.ones((4, 2)), comm=jcomm, **kw)
+        with pytest.raises(ValueError):
+            ops.alltoall(rows, comm=comm, **kw)
+    # the operator's override resolves as in the JAX package: a bare name
+    # forces every op that has it, a malformed value raises ValueError
     monkeypatch.setenv("MPI4JAX_TPU_COLL_ALGO", "ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.allreduce(x, comm=comm)
+    assert ttune.decision_table() == jtune.decision_table()
+    monkeypatch.setenv("MPI4JAX_TPU_COLL_ALGO", "allreduce=warp")
+    for engine in (ttune, jtune):
+        with pytest.raises(ValueError, match="unknown collective"):
+            engine.decision_table()
     monkeypatch.delenv("MPI4JAX_TPU_COLL_ALGO")
     # a bad root, source or destination raises before any transport use,
     # with the JAX world fronts' exception
