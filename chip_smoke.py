@@ -220,12 +220,33 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``MPI4JAX_TPU_COLL_QUANT=force``), the recorder's cost, each timed;
    then the merged trace validates, ``profile report --json`` holds the
    four alltoall schedules and the ``ici`` allreduce with nothing dropped,
-   and ``tune --from-trace`` gives a cache that loads.
+   and ``tune --from-trace`` gives a cache that loads;
+31. path (m): (m1) the joint tuner (``python -m mpi4jax_tpu_torch.tune
+   --joint --np 4 --topk 3`` on ``r0,r1|r2,r3``, allreduce, allgather and
+   alltoall from 1 KiB to 16 MiB) writes a v2 cache and a cost-model file,
+   with kernels 3 and 4 launched in its ``+ici`` sub-jobs (their counts
+   summed over the sub-jobs' ranks); the winners per op and band, each
+   (op, combo)'s fitted alpha and beta and each sub-job's seconds; then
+   path (g)'s f32 SUM allreduce with ``algo=None`` under that cache (the
+   picked combo's gates set) at 16 and 64 MiB a rank: the schedule that
+   runs is the cache's pick for its band, an exact pick bit for bit its
+   simulator on every rank, a quantized one within 5e-2 of the exact sum;
+   (m2) the 1x1 solver of phase 4 at fuse=3, saved with
+   ``checkpoint.save_sharded`` at the midpoint of its timed steps, restored
+   into a freshly built model and finished, bit for bit the uninterrupted
+   run with the same launches of kernel 8; path (f)'s GPT-2 124M train
+   state after one step (f32 master parameters, their bf16 compute copies,
+   the AdamW state) through ``checkpoint.save``/``restore`` on the card,
+   byte for byte, with the MB written and the seconds to write and read;
+   (m3) ``compat.token_api``'s allreduce, sendrecv(shift=1), barrier and
+   allgather chained on a 4-rank mesh comm at 16 MiB f32 a rank, each
+   result bit for bit the tokenless call's, with the tokenless chain's
+   launches of kernels 1 and 3; the phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-30 on the CPU through the plain versions at a small size and prints
+23-31 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -340,6 +361,13 @@ L_TUNE_SIZES = "1024,65536,1048576,16777216"
 L_SMALL = ["--device", "cpu", "--tokens", "64", "--d-model", "16",
            "--d-ff", "32", "--leg-bytes", "65536", "--reps", "3",
            "--small-reps", "10"]
+# phase 31, path (m): the payloads a rank of the algo=None allreduce and of
+# the token chain (16 MiB), and the rehearsal's sizes
+M_SIZES = (16 * 1024 * 1024, 64 * 1024 * 1024)
+M_SMALL_SIZES = "1024,65536"
+M_SMALL_COUNTS = (256, 16384)
+M_SMALL_GPT = gpt.GPTConfig(vocab=256, d_model=32, n_heads=4, n_layers=2,
+                            d_ff=128, max_seq=32, dtype="bfloat16")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2038,6 +2066,290 @@ def path_l(on_card, card):
     return dict(rec, winners=winners, from_trace=ft_table,
                 tune_seconds=tune_secs, job_seconds=job_secs)
 
+def _joint_pick(combos, nbytes):
+    """The combo of ``combos`` (a v2 cache's entries for one op, ``[(min
+    bytes, combo), ...]`` ascending) whose band holds ``nbytes``."""
+    pick = combos[0][1]
+    for mb, combo in combos:
+        if nbytes >= mb:
+            pick = combo
+    return pick
+
+
+def path_m1(dev, on_card, card):
+    """Phase 31, part (m1): ``python -m mpi4jax_tpu_torch.tune --joint
+    --np 4`` on ``r0,r1|r2,r3`` writes a v2 cache and a cost-model file;
+    kernels 3 and 4 must launch in the ``+ici`` sub-jobs.  Then path (g)'s
+    f32 SUM allreduce runs with ``algo=None`` under that cache (the picked
+    combo's gates set) on every rank at 16 and 64 MiB: the schedule that
+    runs must be the cache's pick for the band, an exact pick bit for bit
+    its simulator, a quantized one within 5e-2 of the exact sum."""
+    from mpi4jax_tpu_torch.tune import _joint, _model
+
+    py = sys.executable
+    with tempfile.TemporaryDirectory(prefix="path_m1_") as tmp:
+        cache = os.path.join(tmp, "tune_joint.json")
+        model_file = os.path.join(tmp, "model_joint.json")
+        env = dict(os.environ, MPI4JAX_TPU_FAKE_HOSTS=ici_leg.FAKE_HOSTS)
+        t0 = time.perf_counter()
+        proc = _run("the joint tuner", [
+            py, "-m", "mpi4jax_tpu_torch.tune", "--joint", "--np", "4",
+            "--ops", "allreduce,allgather,alltoall", "--topk", "3",
+            "--repeats", "3", "--cache", cache, "--model-out", model_file]
+            + ([] if on_card else ["--device", "cpu", "--sizes",
+                                   M_SMALL_SIZES]), env, 900)
+        tune_secs = time.perf_counter() - t0
+        lines = [json.loads(line) for line in proc.stdout.splitlines()
+                 if line.startswith("{")]
+        subs = [x for x in lines if "sub_job" in x]
+        with open(cache) as f:
+            payload = json.load(f)
+        model = _model.load_model(model_file)
+    combos = {op: [tuple(e) for e in entries]
+              for op, entries in payload["combos"].items()}
+    for op, entries in sorted(combos.items()):
+        log(f"  joint winners, {op}: " + ", ".join(
+            f">= {mb} B {combo}" for mb, combo in entries))
+    fits = {}
+    for (op, combo), pts in sorted(model.samples.items()):
+        alpha, beta = model._fit((op, combo))
+        fits[f"{op}/{combo}"] = {"alpha_us": alpha * 1e6,
+                                 "beta_ns_per_byte": beta * 1e9,
+                                 "sizes": len(pts)}
+    log("  fitted alpha (us) and beta (ns/B): " + "; ".join(
+        f"{k} {v['alpha_us']:.2f} {v['beta_ns_per_byte']:.5f}"
+        for k, v in fits.items()))
+    ran = {}
+    for sub in subs:
+        if "skipped" in sub:
+            log(f"  sub-job {sub['sub_job']} {sub['gates']} skipped: "
+                f"{sub['skipped']} ({sub['combos']})")
+            continue
+        ran[sub["sub_job"]] = sub
+        log(f"  sub-job {sub['sub_job']} {sub['gates']}: {sub['rows']} rows "
+            f"of {sub['combos']} in {sub['seconds']:.2f} s; launches "
+            f"{sub['launches']}")
+    # the driver writes the cache without a gated sub-job that failed:
+    # every sub-job must be there, and only +q may be skipped (with the
+    # leg on, the leg takes all of its schedules)
+    labels = sorted(sub["sub_job"] for sub in subs)
+    if labels != sorted(("base", "+q", "+ici", "+q+ici")) \
+            or not {"base", "+ici", "+q+ici"} <= set(ran):
+        fail(f"path (m1): sub-jobs {labels}, of which ran {sorted(ran)}; "
+             "base, +ici and +q+ici must run, and +q run or be skipped")
+    if on_card and not (ran["+ici"]["launches"]["fused_ring"] > 0
+                        and ran["+q+ici"]["launches"]["fused_ring"] > 0
+                        and ran["+q+ici"]["launches"]["quant_pack"] > 0):
+        fail(f"path (m1): +ici launched {ran['+ici']['launches']}, +q+ici "
+             f"{ran['+q+ici']['launches']}; kernel 3 must launch in both "
+             "and kernel 4 in +q+ici")
+    ici = {k: ran["+ici"]["launches"][k] + ran["+q+ici"]["launches"][k]
+           for k in ("fused_ring", "quant_pack")}
+    pick = _joint_pick(combos["allreduce"], M_SIZES[0] if on_card
+                       else M_SMALL_COUNTS[-1] * 4)
+    gates = _joint.combo_gates(pick)
+    env = {"MPI4JAX_TPU_TUNE_CACHE": None,  # set per job below
+           "MPI4JAX_TPU_ICI_LEG": gates.get("MPI4JAX_TPU_ICI_LEG", "off"),
+           "MPI4JAX_TPU_COLL_QUANT": gates.get("MPI4JAX_TPU_COLL_QUANT",
+                                               "allow")}
+    counts = ([b // 4 for b in M_SIZES] if on_card else M_SMALL_COUNTS)
+    with tempfile.TemporaryDirectory(prefix="path_m1_") as tmp:
+        env["MPI4JAX_TPU_TUNE_CACHE"] = os.path.join(tmp, "tune_joint.json")
+        with open(env["MPI4JAX_TPU_TUNE_CACHE"], "w") as f:
+            json.dump(payload, f)
+        t0 = time.perf_counter()
+        rec = ici_leg.run_job("joint", device=str(dev), algos=(None,),
+                              check_counts=counts, env=env)
+        check_secs = time.perf_counter() - t0
+    for c in rec["checks"]:
+        want = _joint.combo_algo(_joint_pick(combos["allreduce"],
+                                             c["count"] * 4))
+        if c["algo"] != want:
+            fail(f"path (m1): algo=None ran {c['algo']} at {c['count']} f32 "
+                 f"a rank, the cache picks {want}")
+        log(f"  algo=None at {c['count'] * 4} B a rank: {c['algo']} (cache: "
+            f"{_joint_pick(combos['allreduce'], c['count'] * 4)}, gates "
+            f"{gates}), held to its simulator ({c['check']}), rel err "
+            f"{c['rel_err']:.3e}; launches on rank 0 {c['launches']}")
+    log(f"  tuner {tune_secs:.1f} s, the algo=None job {check_secs:.1f} s; "
+        f"launches in the +ici sub-jobs {ici}, in the algo=None job "
+        f"{rec['launches']} [{card}]")
+    return {"winners": combos, "fits": fits, "sub_jobs": subs,
+            "ici_launches": ici, "check": rec["checks"],
+            "check_launches": rec["launches"], "pick": pick,
+            "tune_seconds": tune_secs, "check_seconds": check_secs}
+
+
+def _bytes_equal(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def _dir_mb(path) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e6
+
+
+def path_m2(dev, shape, on_card, card):
+    """Phase 31, part (m2): the 1x1 solver at fuse=3 for 0.1 model day,
+    uninterrupted and then saved (``checkpoint.save_sharded``) at the
+    midpoint of the timed steps, restored into a freshly built model and
+    finished: the final fields bit for bit and kernel 8's launches the
+    same.  Then path (f)'s GPT-2 124M train state after one step (the f32
+    master parameters, their bf16 compute copies and the AdamW state)
+    through ``checkpoint.save``/``restore`` on the card, byte for byte."""
+    from mpi4jax_tpu_torch.utils import checkpoint
+
+    fuse = 3
+    model = sw.ShallowWater(shape, device=dev)
+    timed = int(DAYS * model.params.day_seconds / model.params.dt) - 1
+    mid = (timed // 2) // fuse * fuse  # the same launches either way
+    s0 = model.init()
+    first = model.step_fn(1, first=True, fuse=fuse)
+    reset_counts()
+    ref = model.step_fn(timed, fuse=fuse)(first(s0))
+    ref = sw.SWState(*(f.clone() for f in ref))
+    sync(dev)
+    ref_launches = kernel.LAUNCHES
+    reset_counts()
+    state = model.step_fn(mid, fuse=fuse)(first(s0))
+    with tempfile.TemporaryDirectory(prefix="path_m2_") as tmp:
+        sync(dev)
+        t0 = time.perf_counter()
+        checkpoint.save_sharded(state._asdict(), step=mid, directory=tmp)
+        sw_write = time.perf_counter() - t0
+        sw_mb = _dir_mb(tmp)
+        fresh = sw.ShallowWater(shape, device=dev)
+        t0 = time.perf_counter()
+        tree, step, manifest = checkpoint.restore_sharded(
+            fresh.init()._asdict(), directory=tmp)
+        sync(dev)
+        sw_read = time.perf_counter() - t0
+    out = fresh.step_fn(timed - mid, fuse=fuse)(sw.SWState(**tree))
+    sync(dev)
+    launches = kernel.LAUNCHES
+    bits = {k: _bytes_equal(getattr(out, k), getattr(ref, k))
+            for k in sw.SWState._fields}
+    if not all(bits.values()) or launches != ref_launches:
+        fail(f"path (m2): the resumed run differs: bit for bit {bits}, "
+             f"kernel 8 launched {launches} against {ref_launches}")
+    if step != mid or manifest["nshards"] != 1:
+        fail(f"path (m2): restored step {step}, manifest {manifest}")
+    log(f"  solver {shape} fuse={fuse}: saved at step {mid} of {timed} "
+        f"timed steps, {sw_mb:.1f} MB written in {sw_write:.3f} s, read in "
+        f"{sw_read:.3f} s; resumed fields bit for bit {bits}; kernel 8 "
+        f"launches {launches} (uninterrupted {ref_launches})")
+
+    cfg = gpt_bench.CFG if on_card else M_SMALL_GPT
+    batch, seq = (gpt_bench.BATCH, gpt_bench.SEQ) if on_card else (2, 32)
+    net = gpt.GPT(cfg, (1, 1, 1), device=dev, seed=0)
+    net.train_step(gpt_bench.make_tokens(batch, seq, cfg.vocab, 0, dev))
+    params = {f: getattr(net, f).detach() for f in gpt.GPTParams._fields}
+    state = {"params": params,
+             "params_bf16": {f: p.to(torch.bfloat16)
+                             for f, p in params.items()},
+             "adamw": {f: dict(net.opt.state[getattr(net, f)])
+                       for f in gpt.GPTParams._fields}}
+    del net
+    like = {"params": {f: torch.empty_like(p) for f, p in params.items()},
+            "params_bf16": {f: torch.empty_like(p)
+                            for f, p in state["params_bf16"].items()},
+            "adamw": {f: {k: torch.empty_like(v) for k, v in st.items()}
+                      for f, st in state["adamw"].items()}}
+    with tempfile.TemporaryDirectory(prefix="path_m2_") as tmp:
+        path = os.path.join(tmp, "gpt_state.npz")
+        sync(dev)
+        t0 = time.perf_counter()
+        checkpoint.save(path, state)
+        gpt_write = time.perf_counter() - t0
+        gpt_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, like)
+        sync(dev)
+        gpt_read = time.perf_counter() - t0
+    from mpi4jax_tpu_torch.utils.tree import leaves
+
+    pairs = list(zip(leaves(state), leaves(back)))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if not (_bytes_equal(a, b) and a.device == b.device)]
+    n_bf16 = sum(a.dtype == torch.bfloat16 for a, _ in pairs)
+    if bad:
+        fail(f"path (m2): {len(bad)} of {len(pairs)} GPT state leaves did "
+             f"not round-trip byte for byte (first {bad[:3]})")
+    log(f"  GPT {'124M' if on_card else '(small)'} train state after one "
+        f"step: {len(pairs)} leaves ({n_bf16} bf16), {gpt_mb:.1f} MB "
+        f"written in {gpt_write:.3f} s, read in {gpt_read:.3f} s, byte for "
+        f"byte [{card}]")
+    return {"sw": {"mb": sw_mb, "write_s": sw_write, "read_s": sw_read,
+                   "step": mid, "timed_steps": timed,
+                   "kernel8_launches": launches,
+                   "uninterrupted_launches": ref_launches,
+                   "bit_for_bit": bits},
+            "gpt": {"mb": gpt_mb, "write_s": gpt_write, "read_s": gpt_read,
+                    "leaves": len(pairs), "bf16_leaves": n_bf16}}
+
+
+def path_m3(dev, on_card, card):
+    """Phase 31, part (m3): on a 4-rank mesh comm with 16 MiB f32 a rank,
+    ``token_api`` allreduce -> sendrecv(shift=1) -> barrier -> allgather,
+    each result bit for bit the tokenless call's, with the launches of
+    kernels 1 and 3 of the tokenless chain."""
+    from mpi4jax_tpu_torch.compat import token_api
+
+    n, count = 4, (M_SIZES[0] // 4 if on_card else 4096)
+    comm = make_mesh(n, device=dev)
+    x = random_tensor((n, count), torch.float32, dev, 31)
+
+    def plain():
+        a = ops.allreduce(x, comm=comm)
+        b = ops.sendrecv(a, shift=1, comm=comm)
+        ops.barrier(comm=comm)
+        return a, b, ops.allgather(b, comm=comm)
+
+    def chained():
+        tok = token_api.create_token(x)
+        a, tok = token_api.allreduce(x, comm=comm, token=tok)
+        b, tok = token_api.sendrecv(a, shift=1, comm=comm, token=tok)
+        tok = token_api.barrier(comm=comm, token=tok)
+        c, tok = token_api.allgather(b, comm=comm, token=tok)
+        if tok.dtype != torch.uint32 or tok.device != x.device:
+            fail(f"path (m3): token {tok.dtype} on {tok.device}")
+        return a, b, c
+
+    runs = {}
+    for name, fn in (("tokenless", plain), ("token", chained)):
+        reset_counts()
+        out = fn()
+        sync(dev)
+        runs[name] = (out, {k: coll.LAUNCHES[k]
+                            for k in ("hop", "fused_ring")})
+    bits = [_bytes_equal(a, b) for a, b in zip(runs["token"][0],
+                                               runs["tokenless"][0])]
+    if not all(bits) or runs["token"][1] != runs["tokenless"][1]:
+        fail(f"path (m3): the token chain differs: bit for bit {bits}, "
+             f"launches {runs['token'][1]} against {runs['tokenless'][1]}")
+    log(f"  n={n}, {count * 4} B a rank: allreduce, sendrecv, barrier, "
+        f"allgather bit for bit {bits}; launches {runs['token'][1]} "
+        f"(tokenless {runs['tokenless'][1]}) [{card}]")
+    return {"launches": runs["token"][1], "bit_for_bit": bits}
+
+
+def path_m(dev, shape, on_card, card):
+    """Phase 31: path (m), parts (m1)-(m3)."""
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    log("  (m1) the joint tuner, then algo=None under its cache")
+    m1 = path_m1(dev, on_card, card)
+    log("  (m2) checkpoint and resume")
+    m2 = path_m2(dev, shape, on_card, card)
+    log("  (m3) the token chain")
+    m3 = path_m3(dev, on_card, card)
+    secs = time.perf_counter() - t0
+    log(f"  phase 31: {secs:.1f} s [{card}]")
+    return {"m1": m1, "m2": m2, "m3": m3, "seconds": secs}
+
 
 def check_kernel(shape, dev, fuses):
     """The kernel against its plain version at one shape, at the solver's
@@ -2105,7 +2417,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-30 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-31 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -2261,6 +2573,10 @@ def main(argv=None):
         f"family on {WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS} with "
         f"the recorder [{card}]")
     path_l(on_card, card)
+    log(f"phase 31: path (m), the joint tuner and algo=None under its cache "
+        f"on {WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS}, checkpoint "
+        f"and resume, the token chain [{card}]")
+    m_run = path_m(dev, shape, on_card, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:
@@ -2421,6 +2737,21 @@ def main(argv=None):
         row["launches_path_h"] = h_launches.get(name, 0)
         row["launches_path_i"] = i_launches.get(name, 0)
         row["launches_path_j"] = j_launches.get(name, 0)
+    m1, m2, m3 = m_run["m1"], m_run["m2"], m_run["m3"]
+    sw_row["launches_path_m"] = m2["sw"]["kernel8_launches"]
+    hop_row["launches_path_m"] = m3["launches"]["hop"]
+    ring_row["launches_path_m"] = {
+        "joint_ici_sub_jobs": m1["ici_launches"]["fused_ring"],
+        "algo_none_job": m1["check_launches"]["fused_ring"],
+        "token_chain": m3["launches"]["fused_ring"]}
+    quant_row["launches_path_m"] = {
+        "joint_ici_sub_jobs": m1["ici_launches"]["quant_pack"],
+        "algo_none_job": m1["check_launches"]["quant_pack"]}
+    quant_row["path_m"] = {
+        "seconds": m_run["seconds"], "pick_16MiB": m1["pick"],
+        "winners": m1["winners"], "tune_seconds": m1["tune_seconds"],
+        "sub_jobs": m1["sub_jobs"],
+        "checkpoint": m2}
     ring_row["path_h"] = h_runs
     hop_row["path_i"] = i_runs
     a2a_row["path_j"] = j_runs

@@ -59,7 +59,16 @@ Ported so far:
   mpi4jax_tpu_torch.profile``), and the tune layers above the default
   table (the persistent cache, ``set_algorithm``,
   ``MPI4JAX_TPU_COLL_ALGO``; ``python -m mpi4jax_tpu_torch.tune``, also
-  ``--from-trace``), each reading and writing the JAX package's formats.
+  ``--from-trace``), each reading and writing the JAX package's formats;
+- the token API: ``token=`` on every front, ``create_token``,
+  ``explicit_token_ordering`` and ``compat.token_api``'s ``(result,
+  token)`` signatures (a token is a 0-d ``uint32`` zero: eager program
+  order already orders the ops); the world bootstrap
+  (``WorldComm.from_mpi``, the launcher's ``--hosts``,
+  ``runtime.distributed``); checkpoints (``utils/checkpoint.py``, files
+  either package reads); and the joint tuner (``tune/_model.py``,
+  ``tune/_joint.py``, ``python -m mpi4jax_tpu_torch.tune --joint``),
+  whose ``+ici`` sub-jobs run the intra-island leg's kernels 3 and 4.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.
@@ -84,7 +93,9 @@ from .ops import (
     alltoall,
     barrier,
     bcast,
+    create_token,
     custom_op,
+    explicit_token_ordering,
     gather,
     neighbor_exchange,
     recv,
@@ -109,7 +120,7 @@ __all__ = [
     "ProcessGrid", "halo_exchange", "ring_attention",
     "allreduce", "allgather", "alltoall", "bcast", "reduce", "gather",
     "scatter", "scan", "sendrecv", "barrier", "send", "recv",
-    "neighbor_exchange",
+    "neighbor_exchange", "create_token", "explicit_token_ordering",
     "WorldComm", "Status", "ANY_SOURCE", "ANY_TAG",
     "ReduceOp", "custom_op", "ALL_OPS",
     "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR",

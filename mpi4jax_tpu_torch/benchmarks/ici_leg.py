@@ -26,8 +26,8 @@ launches of kernels 3 and 4 per call on rank 0, and a correctness check:
 the exact variants bit for bit against the simulators
 (``topo/_simulate.py``), ``hring+q+ici`` bit for bit against
 ``simulate_ici_q_sum``, and ``hring+q`` (no bit model ported) within the
-int8 bound 5e-2 of the exact sum.  The CUDA contexts' start and the comm's
-creation are timed apart from the calls.
+int8 bound 5e-2 of the exact sum and not bit for bit that sum.  The CUDA
+contexts' start and the comm's creation are timed apart from the calls.
 
     python -m mpi4jax_tpu_torch.benchmarks.ici_leg --json
     python -m mpi4jax_tpu_torch.benchmarks.ici_leg --device cpu \\
@@ -38,7 +38,9 @@ leg runs the plain versions, and the times measure nothing of the card.
 
 The same file is the ranks' program (``--job spec.json``): ``run_job``
 launches it through ``mpi4jax_tpu_torch.runtime.launch``, as the tests and
-``chip_smoke.py`` do.
+``chip_smoke.py`` do.  An algorithm of ``None`` checks the engine's own
+pick (``algo=None``) under the job's knobs and tune cache, held to the
+simulator of the schedule the comm reports (``WorldComm.coll_algo``).
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ def expected(parts, islands, algo: str, leg: bool, quant: bool):
     held to it (``"bits"``, or ``"int8 bound"`` against the exact sum),
     and the exact schedule's result."""
     from mpi4jax_tpu_torch import topo
+    from mpi4jax_tpu_torch.topo import _simulate as sim
 
     if algo in ("hring", "htree"):
         sim = (topo.simulate_hring_sum if algo == "hring"
@@ -100,20 +103,29 @@ def expected(parts, islands, algo: str, leg: bool, quant: bool):
         if leg and quant:
             return topo.simulate_ici_q_sum(parts, islands), "bits", exact
     else:
-        exact = {"ring": topo.simulate_ring_sum,
-                 "rd": topo.simulate_rd_sum}[algo](parts)
-    # the native quantized schedules have no bit model ported
+        exact = {"ring": sim.simulate_ring_sum,
+                 "qring": sim.simulate_ring_sum,
+                 "rd": sim.simulate_rd_sum, "qrd": sim.simulate_rd_sum,
+                 "tree": sim.simulate_tree_sum}[algo](parts)
+    # the native quantized schedules are held to the int8 bound
+    quant = quant or algo in ("qring", "qrd")
     return exact, "int8 bound" if quant else "bits", exact
 
 
 def _check(out: np.ndarray, want: np.ndarray, kind: str, exact, what: str):
     """Hold ``out`` to ``want``; returns the relative error against the
-    exact sum (0 for a bit-for-bit check of an exact schedule)."""
+    exact sum (0 for a bit-for-bit check of an exact schedule).  A
+    quantized schedule (``"int8 bound"``) must also differ from the exact
+    sum: bit for bit the exact schedule's result means that one ran."""
     if kind == "bits" and not np.array_equal(out.view(np.uint32),
                                              want.view(np.uint32)):
         raise AssertionError(
             f"{what}: differs from the simulator by "
             f"{float(np.max(np.abs(out - want))):.3e}")
+    if kind == "int8 bound" and np.array_equal(out.view(np.uint32),
+                                               exact.view(np.uint32)):
+        raise AssertionError(f"{what}: bit for bit the exact schedule's "
+                             "sum; the quantized schedule did not run")
     denom = max(float(np.max(np.abs(exact))), 1e-6)
     err = float(np.max(np.abs(out - exact))) / denom
     if err >= QUANT_BOUND:
@@ -182,8 +194,10 @@ def _rank_job(path: str) -> None:
         base = rows_of(spec["seed"], count, n)
         parts = [base[r] for r in range(n)]
         x = torch.from_numpy(base[rank].copy()).to(dev)
-        for algo in spec["algos"]:
-            out, launched = call(x, algo)
+        for forced in spec["algos"]:
+            # None: the engine's pick for this payload
+            algo = forced or comm.coll_algo("allreduce", x.nbytes)
+            out, launched = call(x, forced)
             what = f"{spec['label']} {algo} count={count} rank {rank}"
             if out.device != dev or out.shape != x.shape:
                 raise AssertionError(f"{what}: result on {out.device} of "
@@ -200,8 +214,9 @@ def _rank_job(path: str) -> None:
             if launched != want_launches(algo):
                 raise AssertionError(f"{what}: launched {launched}, "
                                      f"expected {want_launches(algo)}")
-            checks.append({"count": count, "algo": algo, "check": kind,
-                           "rel_err": err, "launches": launched})
+            checks.append({"count": count, "algo": algo, "forced": forced,
+                           "check": kind, "rel_err": err,
+                           "launches": launched})
 
     def timed(x, algo, calls):
         times = []
@@ -270,10 +285,10 @@ def _rank_job(path: str) -> None:
 
 def run_job(label: str, *, device="cuda", algos=("hring",),
             check_counts=(), sizes=(), calls=None, beside=False, seed=0,
-            timeout=600.0) -> dict:
+            timeout=600.0, env=None) -> dict:
     """Launch one job of ``RANKS`` ranks on ``FAKE_HOSTS`` with the
-    variant ``label``'s knobs through the port's launcher and return rank
-    0's record; a failed rank or check raises."""
+    variant ``label``'s knobs (or ``env``, when given) through the port's
+    launcher and return rank 0's record; a failed rank or check raises."""
     from mpi4jax_tpu_torch import topo
     from mpi4jax_tpu_torch.runtime import launch
 
@@ -285,7 +300,8 @@ def run_job(label: str, *, device="cuda", algos=("hring",),
         spec = {"label": label, "device": str(device), "algos": list(algos),
                 "check_counts": list(check_counts), "sizes": list(sizes),
                 "calls": calls, "beside": beside, "seed": seed,
-                "env": dict(VARIANTS[label][1]), "islands": islands,
+                "env": dict(VARIANTS[label][1] if env is None else env),
+                "islands": islands,
                 "out": os.path.join(tmp, "out.json")}
         path = os.path.join(tmp, "spec.json")
         with open(path, "w") as f:

@@ -513,10 +513,10 @@ def run_rank(device: str, out_dir: str) -> dict:
         np.full(3, 2.0 * (lo + 1), np.float32),
         np.full(3, float(hi + 1), np.float32)]))
 
-    # -- what stays unported raises; refusals of the JAX fronts ----------
+    # -- refusals of the JAX fronts --------------------------------------
     rows = torch.zeros((n, 2), device=dev)
-    ck.true("alltoall token= raises", _raises(
-        lambda: mt.alltoall(rows, comm=comm, token=object())))
+    ck.true("alltoall token=object() raises", _raises(
+        lambda: mt.alltoall(rows, comm=comm, token=object()), TypeError))
     ck.true("alltoall algo=qring raises", _raises(
         lambda: mt.alltoall(rows, comm=comm, algo="qring"), ValueError))
     ck.true("wrong device raises", _raises(

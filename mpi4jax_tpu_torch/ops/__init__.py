@@ -3,9 +3,12 @@
 Every op runs on the mesh tier (``_mesh_impl.py``) and on the world tier
 (``_world_impl.py``, one process per rank over the native transport).
 send, recv and neighbor_exchange belong to the world tier: on a mesh comm
-they raise, as the JAX package's do.
+they raise, as the JAX package's do.  Every front takes ``token=``
+(``_dispatch.py``, ``compat/token_api.py``).
 """
 
+from ._dispatch import create_token
+from ._world_impl import explicit_token_ordering
 from .allgather import allgather
 from .allreduce import allreduce
 from .alltoall import alltoall
@@ -42,6 +45,8 @@ __all__ = [
     "alltoall",
     "barrier",
     "bcast",
+    "create_token",
+    "explicit_token_ordering",
     "gather",
     "neighbor_exchange",
     "recv",

@@ -36,6 +36,7 @@ native call, the copy back).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -47,6 +48,28 @@ from ..utils import tracing
 from ..utils.algos import ALGO_CODES
 from ..utils.status import ANY_TAG
 from .reduce_ops import OP_CODES, ReduceOp
+
+# ---------------- ordering mode ----------------
+
+
+@contextlib.contextmanager
+def explicit_token_ordering():
+    """Context manager: ordering of world ops is the caller's explicit
+    token chain (``compat.token_api``), as in the JAX package
+    (``mpi4jax_tpu/ops/_world_impl.py:159-185``).
+
+    There the mode lets one jitted program mix mesh collectives with
+    world ops, and a trace-time guard watches for a world op binding a
+    fresh token while another chain on the same comm is live
+    (``MPI4JAX_TPU_STRICT_TOKENS``: unset warns, 1 raises, 0 is silent).
+    That guard tracks only tracers: a concrete (eager) token runs in
+    Python order, where nothing can reorder, so eager chains are never
+    flagged.  The port is eager throughout, so the context does nothing:
+    no op reads the mode, nothing is flagged, as in the JAX package's
+    eager runs, and ``MPI4JAX_TPU_STRICT_TOKENS`` is not read.
+    """
+    yield
+
 
 # ---------------- staging ----------------
 

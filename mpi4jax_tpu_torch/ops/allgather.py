@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def allgather(x, *, comm=None, token=None):
@@ -17,14 +17,13 @@ def allgather(x, *, comm=None, token=None):
     so on the mesh tier the result is ``(*lead, size, *local)``, and on the
     world tier ``(size, *x.shape)``."""
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         from . import _world_impl
 
         _validation.check_world_tensor("allgather", x, comm)
-        _validation.check_no_token("allgather", token, comm, x)
         _validation.check_wire_dtype("allgather", x, comm)
-        return _world_impl.allgather(x, comm)
+        return _dispatch.attach(_world_impl.allgather(x, comm), token)
     _validation.check_tensor("allgather", x, comm)
-    _validation.check_no_token("allgather", token, comm, x)
     _tracing.trace_mesh_op(comm, "Allgather")
-    return _mesh_impl.allgather(x, comm)
+    return _dispatch.attach(_mesh_impl.allgather(x, comm), token)

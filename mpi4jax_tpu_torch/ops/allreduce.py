@@ -18,7 +18,7 @@ from __future__ import annotations
 from ..utils import algos as _algos
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
 
 def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
@@ -33,7 +33,7 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
     there; ``compression="int8"`` with ``op=SUM`` runs the quantized
     schedule (``quantized.quantized_allreduce_sum``: one alltoall and one
     all-gather of int8 rows), and with another op raises
-    ``NotImplementedError``.  So does ``token=``.
+    ``NotImplementedError``.
 
     On a world comm ``x`` is this rank's tensor, on the comm's device; any
     op and supported dtype; ``algo=`` one of auto, ring, rd, tree, qring,
@@ -43,11 +43,16 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
     floating dtype runs the transport's quantized schedule, rank-consistent
     and about 1e-2 off the exact sum.  Only SUM is differentiable: its
     gradient passes the cotangent unchanged.
+
+    With ``token=`` (``ops/_dispatch.py``) both tiers return ``(result,
+    token)``; the result is the tokenless call's.
     """
     op = as_reduce_op(op)
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
-        return _world_allreduce(x, op, comm, token, compression, algo)
+        return _dispatch.attach(
+            _world_allreduce(x, op, comm, compression, algo), token)
     _validation.check_tensor("allreduce", x, comm)
     if algo is not None:
         _algos.check_algo(algo, "allreduce")
@@ -56,15 +61,14 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
             "algo= forces a WORLD-tier transport schedule; the mesh tier "
             "has its own dispatch", op="allreduce", comm=comm, x=x,
             exc=NotImplementedError)
-    _validation.check_no_token("allreduce", token, comm, x)
     if compression is not None:
         _check_compression(compression, op, comm, x)
         from .quantized import quantized_allreduce_sum
 
-        return quantized_allreduce_sum(x, comm)
+        return _dispatch.attach(quantized_allreduce_sum(x, comm), token)
     _validation.check_reduce_dtype("allreduce", op, x, comm)
     _tracing.trace_mesh_op(comm, "Allreduce", f"op {op.name}")
-    return _mesh_impl.allreduce(x, op, comm)
+    return _dispatch.attach(_mesh_impl.allreduce(x, op, comm), token)
 
 
 def _check_compression(compression, op, comm, x):
@@ -78,7 +82,7 @@ def _check_compression(compression, op, comm, x):
             op="allreduce", comm=comm, x=x, exc=NotImplementedError)
 
 
-def _world_allreduce(x, op, comm, token, compression, algo):
+def _world_allreduce(x, op, comm, compression, algo):
     from . import _world_impl
 
     _validation.check_world_tensor("allreduce", x, comm)
@@ -94,7 +98,6 @@ def _world_allreduce(x, op, comm, token, compression, algo):
                 f"custom reduce op {op.name} runs as allgather + local "
                 "fold; there is no allreduce schedule to force",
                 op="allreduce", comm=comm, x=x, exc=ValueError)
-    _validation.check_no_token("allreduce", token, comm, x)
     if compression is not None:
         from .quantized import (check_quantizable, native_quant_algo,
                                 quantized_allreduce_sum_world)

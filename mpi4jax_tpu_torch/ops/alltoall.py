@@ -14,7 +14,7 @@ from __future__ import annotations
 from ..utils import algos as _algos
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
@@ -38,9 +38,11 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
     applies the gates (``COLL_QUANT=deny|force``, ``MPI4JAX_TPU_HIER=
     deny``) and degrades integer payloads to the exact exchange; bf16 rides
     its f32 staging.  The result has no gradient on the world tier, as in
-    the JAX package.  ``token=`` raises ``NotImplementedError``.
+    the JAX package.  With ``token=`` both tiers return ``(result,
+    token)``.
     """
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     world = _validation.is_world(comm)
     if world:
         _validation.check_world_tensor("alltoall", x, comm)
@@ -74,10 +76,9 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
         # None: the exact exchange (COLL_QUANT=deny), the same process-wide
         # signal on every rank
         algo = native_quant_alltoall()
-    _validation.check_no_token("alltoall", token, comm, x)
     if not world:
         _tracing.trace_mesh_op(comm, "Alltoall")
-        return _mesh_impl.alltoall(x, comm)
+        return _dispatch.attach(_mesh_impl.alltoall(x, comm), token)
     from . import _world_impl
 
     _validation.check_wire_dtype("alltoall", x, comm)
@@ -86,4 +87,4 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
             f"alltoall requires leading axis == communicator size "
             f"({comm.size()})", op="alltoall", comm=comm, x=x,
             exc=ValueError)
-    return _world_impl.alltoall(x, comm, algo=algo)
+    return _dispatch.attach(_world_impl.alltoall(x, comm, algo=algo), token)

@@ -12,17 +12,18 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def barrier(*, comm=None, token=None):
-    """Returns ``None``; ``token=`` raises ``NotImplementedError``."""
+    """Returns ``None``, or with ``token=`` that token."""
     comm = _validation.resolve_comm(comm)
-    _validation.check_no_token("barrier", token, comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         from . import _world_impl
 
         _world_impl.barrier(comm)
-        return None
-    _tracing.trace_mesh_op(comm, "Barrier")
-    _mesh_impl.barrier(comm)
+    else:
+        _tracing.trace_mesh_op(comm, "Barrier")
+        _mesh_impl.barrier(comm)
+    return token

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def bcast(x, root=0, *, comm=None, token=None):
@@ -18,16 +18,15 @@ def bcast(x, root=0, *, comm=None, token=None):
     every rank passes the same shape); a root outside the communicator
     raises."""
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         from . import _world_impl
 
         _validation.check_world_tensor("bcast", x, comm)
         root = _validation.check_root("bcast", root, comm)
-        _validation.check_no_token("bcast", token, comm, x)
         _validation.check_wire_dtype("bcast", x, comm)
-        return _world_impl.bcast(x, root, comm)
+        return _dispatch.attach(_world_impl.bcast(x, root, comm), token)
     _validation.check_tensor("bcast", x, comm)
-    _validation.check_no_token("bcast", token, comm, x)
     root = _validation.check_root("bcast", root, comm)
     _tracing.trace_mesh_op(comm, "Bcast", f"root {root}")
-    return _mesh_impl.bcast(x, root, comm)
+    return _dispatch.attach(_mesh_impl.bcast(x, root, comm), token)

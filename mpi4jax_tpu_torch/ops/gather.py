@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def gather(x, root=0, *, comm=None, token=None):
@@ -19,16 +19,15 @@ def gather(x, root=0, *, comm=None, token=None):
     *local)``, replicated on every rank; on the world tier ``(size,
     *x.shape)`` on the root and ``x`` elsewhere."""
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         from . import _world_impl
 
         _validation.check_world_tensor("gather", x, comm)
         root = _validation.check_root("gather", root, comm)
-        _validation.check_no_token("gather", token, comm, x)
         _validation.check_wire_dtype("gather", x, comm)
-        return _world_impl.gather(x, root, comm)
+        return _dispatch.attach(_world_impl.gather(x, root, comm), token)
     _validation.check_tensor("gather", x, comm)
-    _validation.check_no_token("gather", token, comm, x)
     root = _validation.check_root("gather", root, comm)
     _tracing.trace_mesh_op(comm, "Gather", f"root {root}")
-    return _mesh_impl.gather(x, root, comm)
+    return _dispatch.attach(_mesh_impl.gather(x, root, comm), token)

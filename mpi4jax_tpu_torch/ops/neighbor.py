@@ -10,6 +10,7 @@ mesh comm raises, as in the JAX package.
 from __future__ import annotations
 
 from ..utils import validation as _validation
+from . import _dispatch
 
 
 def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm=None, tag=60,
@@ -29,6 +30,7 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm=None, tag=60,
     tier only: a mesh comm raises ``NotImplementedError``.
     """
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if not _validation.is_world(comm):
         _validation.check_tensor("neighbor_exchange", to_lo, comm)
         _validation.check_tensor("neighbor_exchange", to_hi, comm)
@@ -42,7 +44,6 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm=None, tag=60,
                                    name="to_lo")
     _validation.check_world_tensor("neighbor_exchange", to_hi, comm,
                                    name="to_hi")
-    _validation.check_no_token("neighbor_exchange", token, comm, to_lo)
     if to_lo.shape != to_hi.shape or to_lo.dtype != to_hi.dtype:
         _validation.fail(
             f"to_lo and to_hi must match: {tuple(to_lo.shape)} "
@@ -53,5 +54,6 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm=None, tag=60,
             _validation.check_in_range(name, int(r), comm.size(),
                                        op="neighbor_exchange", comm=comm)
     _validation.check_wire_dtype("neighbor_exchange", to_lo, comm)
-    return _world_impl.neighbor_exchange(to_lo, to_hi, lo=lo, hi=hi,
-                                         comm=comm, tag=tag)
+    out = _world_impl.neighbor_exchange(to_lo, to_hi, lo=lo, hi=hi,
+                                        comm=comm, tag=tag)
+    return _dispatch.attach(out, token)

@@ -9,6 +9,7 @@ receive (``_world_impl.recv``); the mesh tier rejects it and points to
 from __future__ import annotations
 
 from ..utils import validation as _validation
+from . import _dispatch
 from ..utils.status import ANY_SOURCE, ANY_TAG, Status
 from .send import MESH_P2P
 
@@ -25,6 +26,7 @@ def recv(x, source, tag=None, *, comm=None, token=None, status=None):
     ``x``'s (the transport exits the job otherwise).
     """
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if not _validation.is_world(comm):
         _validation.check_tensor("recv", x, comm)
         _validation.check_static_int("source", source)
@@ -40,9 +42,9 @@ def recv(x, source, tag=None, *, comm=None, token=None, status=None):
     if status is not None and not isinstance(status, Status):
         raise TypeError(f"status must be an mpi4jax_tpu_torch.Status, got "
                         f"{type(status)}")
-    _validation.check_no_token("recv", token, comm, x)
     if source != ANY_SOURCE:
         _validation.check_in_range("source", source, comm.size(), op="recv",
                                    comm=comm)
     _validation.check_wire_dtype("recv", x, comm)
-    return _world_impl.recv(x, source, tag, comm, status)
+    return _dispatch.attach(_world_impl.recv(x, source, tag, comm, status),
+                            token)

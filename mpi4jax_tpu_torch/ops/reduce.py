@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 from .reduce_ops import SUM, as_reduce_op
 
 
@@ -20,18 +20,17 @@ def reduce(x, op=SUM, root=0, *, comm=None, token=None):
     keep ``x``."""
     op = as_reduce_op(op)
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         from . import _world_impl
 
         _validation.check_world_tensor("reduce", x, comm)
         root = _validation.check_root("reduce", root, comm)
-        _validation.check_no_token("reduce", token, comm, x)
         _validation.check_reduce_dtype("reduce", op, x, comm)
         _validation.check_wire_dtype("reduce", x, comm)
-        return _world_impl.reduce(x, op, root, comm)
+        return _dispatch.attach(_world_impl.reduce(x, op, root, comm), token)
     _validation.check_tensor("reduce", x, comm)
-    _validation.check_no_token("reduce", token, comm, x)
     root = _validation.check_root("reduce", root, comm)
     _validation.check_reduce_dtype("reduce", op, x, comm)
     _tracing.trace_mesh_op(comm, "Reduce", f"op {op.name} root {root}")
-    return _mesh_impl.reduce(x, op, root, comm)
+    return _dispatch.attach(_mesh_impl.reduce(x, op, root, comm), token)

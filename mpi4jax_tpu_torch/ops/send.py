@@ -10,6 +10,7 @@ and points to ``sendrecv``.
 from __future__ import annotations
 
 from ..utils import validation as _validation
+from . import _dispatch
 
 MESH_P2P = (
     "{op}() has no meaning inside a single SPMD program: every rank executes "
@@ -22,8 +23,10 @@ MESH_P2P = (
 
 def send(x, dest, tag=0, *, comm=None, token=None):
     """Send ``x`` to rank ``dest`` (world tier only; raises
-    ``NotImplementedError`` on a mesh comm)."""
+    ``NotImplementedError`` on a mesh comm).  Returns ``None``, or with
+    ``token=`` that token."""
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if not _validation.is_world(comm):
         _validation.check_tensor("send", x, comm)
         _validation.check_static_int("dest", dest)
@@ -35,8 +38,8 @@ def send(x, dest, tag=0, *, comm=None, token=None):
     _validation.check_world_tensor("send", x, comm)
     dest = _validation.check_static_int("dest", dest)
     tag = _validation.check_static_int("tag", tag)
-    _validation.check_no_token("send", token, comm, x)
     _validation.check_in_range("dest", dest, comm.size(), op="send",
                                comm=comm)
     _validation.check_wire_dtype("send", x, comm)
     _world_impl.send(x, dest, tag, comm)
+    return token

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from ..utils import tracing as _tracing
 from ..utils import validation as _validation
-from . import _mesh_impl
+from . import _dispatch, _mesh_impl
 
 
 def _resolve_perm(comm, perm, shift, wrap):
@@ -50,19 +50,20 @@ def sendrecv(x, *, perm=None, shift=None, wrap=True, source=None, dest=None,
     arrived.  Without a status a message of another size exits the job.
     """
     comm = _validation.resolve_comm(comm)
+    _dispatch.check_token(token)
     if _validation.is_world(comm):
         _validation.check_world_tensor("sendrecv", x, comm)
     else:
         _validation.check_tensor("sendrecv", x, comm)
-    _validation.check_no_token("sendrecv", token, comm, x)
     if tag is not None:
         sendtag = recvtag = _validation.check_static_int("tag", tag)
     sendtag = _validation.check_static_int("sendtag", sendtag)
     if recvtag is not None:
         recvtag = _validation.check_static_int("recvtag", recvtag)
     if _validation.is_world(comm):
-        return _world_sendrecv(x, comm, perm, shift, wrap, source, dest,
-                               sendtag, recvtag, status)
+        return _dispatch.attach(
+            _world_sendrecv(x, comm, perm, shift, wrap, source, dest,
+                            sendtag, recvtag, status), token)
     if source is not None or dest is not None:
         raise ValueError(
             "mesh-tier sendrecv takes the global pattern (perm=[(src, dst), "
@@ -73,7 +74,7 @@ def sendrecv(x, *, perm=None, shift=None, wrap=True, source=None, dest=None,
         raise ValueError("message tags are world-tier only")
     pairs = _resolve_perm(comm, perm, shift, wrap)
     _tracing.trace_mesh_op(comm, "Sendrecv", f"perm {pairs}")
-    return _mesh_impl.sendrecv(x, pairs, comm)
+    return _dispatch.attach(_mesh_impl.sendrecv(x, pairs, comm), token)
 
 
 def _world_sendrecv(x, comm, perm, shift, wrap, source, dest, sendtag,

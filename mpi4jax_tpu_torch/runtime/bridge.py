@@ -230,16 +230,20 @@ _topo_handles: dict = {}
 _topo_subcomms: dict = {}
 
 
-def comm_init(rank: int, size: int, coord: str, device=None) -> int:
+def comm_init(rank: int, size: int, coord: str, device=None,
+              hosts=None) -> int:
     """Connect this rank's world comm (collective over the world), run
     topology discovery, install the tune layers (``tune.install``), arm the
-    recorder when asked (``_install_obs``) and return the native handle.  ``device`` is where
-    the world's tensors live: the leg runs its kernels there."""
+    recorder when asked (``_install_obs``) and return the native handle.
+    ``device`` is where the world's tensors live: the leg runs its kernels
+    there.  ``hosts`` is the per-rank host list (comma-separated; default
+    ``MPI4JAX_TPU_HOSTS``, else every rank on 127.0.0.1)."""
     from .. import obs, tune
 
     lib = get_lib()
     _, _, port = coord.partition(":")
-    hosts = os.environ.get("MPI4JAX_TPU_HOSTS", "")
+    if hosts is None:
+        hosts = os.environ.get("MPI4JAX_TPU_HOSTS", "")
     handle = lib.tpucomm_init(rank, size, int(port or 49817), hosts.encode())
     if handle == 0:
         _abort("init", 1)

@@ -1,12 +1,14 @@
 """Launch a program as N world ranks, one process each.
 
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
-        [--port P] [--timeout S] [--trace out.json] prog.py [args...]
+        [--hosts H0,H1,...] [--port P] [--timeout S] [--trace out.json] \\
+        prog.py [args...]
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 -m package.module [-- args...]
 
 The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
 rank runs ``prog.py`` (or ``python -m package.module`` under ``-m``) with ``MPI4JAX_TPU_RANK`` / ``SIZE`` / ``COORD`` /
-``JOBID`` set (and ``MPI4JAX_TPU_FAKE_HOSTS`` under ``--fake-hosts``);
+``JOBID`` set (and ``MPI4JAX_TPU_FAKE_HOSTS`` under ``--fake-hosts``,
+``MPI4JAX_TPU_HOSTS`` under ``--hosts``);
 ``transport.get_world_comm()`` then returns its ``WorldComm``.  The ranks
 share this host; on a machine with one card they all use it.
 
@@ -74,7 +76,7 @@ def _terminate_group(procs):
 
 
 def rank_env(rank: int, size: int, base_port: int, jobid: str,
-             fake_hosts=None, trace=None) -> dict:
+             fake_hosts=None, trace=None, hosts=None) -> dict:
     """The environment of one rank."""
     env = dict(os.environ)
     env["MPI4JAX_TPU_RANK"] = str(rank)
@@ -83,6 +85,8 @@ def rank_env(rank: int, size: int, base_port: int, jobid: str,
     env["MPI4JAX_TPU_JOBID"] = jobid
     if fake_hosts:
         env["MPI4JAX_TPU_FAKE_HOSTS"] = fake_hosts
+    if hosts:
+        env["MPI4JAX_TPU_HOSTS"] = hosts
     if trace:
         env["MPI4JAX_TPU_TRACE"] = trace
     return env
@@ -144,6 +148,16 @@ def main(argv=None) -> int:
                     help="virtual host partition ('r0,r1|r2,r3': ranks 0-1 "
                          "and 2-3 form two islands), exported to every "
                          "rank as MPI4JAX_TPU_FAKE_HOSTS")
+    ap.add_argument("--hosts", default=None,
+                    help="comma-separated per-rank host list for the native "
+                         "transport, one entry per rank (default: every "
+                         "rank on 127.0.0.1), exported to every rank as "
+                         "MPI4JAX_TPU_HOSTS.  Rank i listens on hosts[i]; "
+                         "the launcher still spawns every rank here (the "
+                         "list is for multi-homed hosts and loopback "
+                         "aliases).  The JAX launcher's --platform, which "
+                         "sets JAX_PLATFORMS, has no torch meaning: a "
+                         "rank's device is its program's choice")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record every rank's per-op events "
                          "(MPI4JAX_TPU_TRACE) and merge them into one "
@@ -159,6 +173,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.np < 1:
         ap.error("-n must be at least 1")
+    if args.hosts:
+        nhosts = len(args.hosts.split(","))
+        if nhosts != args.np:
+            ap.error(f"--hosts lists {nhosts} entries for {args.np} ranks")
     prog_args = args.args[1:] if args.args[:1] == ["--"] else args.args
     command = ["-m"] * args.module + [args.prog, *prog_args]
 
@@ -193,7 +211,7 @@ def main(argv=None) -> int:
             procs.append(subprocess.Popen(
                 [sys.executable, *command],
                 env=rank_env(rank, args.np, base_port, jobid,
-                             args.fake_hosts, trace)))
+                             args.fake_hosts, trace, args.hosts)))
         in_spawn[0] = False
         if deferred:
             raise deferred[0]

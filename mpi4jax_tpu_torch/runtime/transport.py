@@ -13,7 +13,9 @@ data crosses the native transport through pinned host memory (the
 reference's GPU bridge pattern, ``ops/_world_impl.py``), and the
 intra-island leg of its hierarchical allreduce runs its kernels on that
 device.  ``split`` and ``dup`` make sub-communicators that borrow the
-world's sockets.
+world's sockets.  ``WorldComm.from_mpi`` adopts an mpi4py communicator
+(``:318-345`` there): mpi4py only bootstraps, the data moves over the
+native transport.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ def get_world_comm(device=None) -> "WorldComm":
 
 def _free_port_block(size: int) -> int:
     """A base port such that base .. base+size-1 are bindable on this host
-    (rank r listens on base+r)."""
+    (rank r listens on base+r; a collision on another host surfaces as the
+    native init's failure)."""
     import random
     import socket
 
@@ -111,10 +114,11 @@ class WorldComm(CommBase):
     every rank connects, then discovers the topology)."""
 
     def __init__(self, rank: int, size: int, coord: str, *, device=None,
-                 handle=None, parent=None):
+                 handle=None, parent=None, hosts=None):
         self._rank = int(rank)
         self._size = int(size)
         self._coord = coord
+        self._hosts = hosts  # per-rank host table (else MPI4JAX_TPU_HOSTS)
         self._handle = handle
         self._parent = parent  # children borrow the parent's sockets
         self.device = resolve_device(device)
@@ -135,8 +139,34 @@ class WorldComm(CommBase):
 
             self._handle = bridge.comm_init(self._rank, self._size,
                                             self._coord,
-                                            device=self.device)
+                                            device=self.device,
+                                            hosts=self._hosts)
         return self._handle
+
+    @classmethod
+    def from_mpi(cls, mpi_comm, *, device=None) -> "WorldComm":
+        """Adopt an mpi4py communicator (``MPI.COMM_WORLD`` or one derived
+        with ``Split``): its group becomes a fresh world over the native
+        transport.
+
+        mpi4py only bootstraps: the rank and size, the members' addresses
+        (``MPI4JAX_TPU_HOST``, default 127.0.0.1, allgathered) and a base
+        port that rank 0 finds free and broadcasts.  The comm carries that
+        host list down to the transport's init, so it needs no
+        ``MPI4JAX_TPU_HOSTS``.  Collective over ``mpi_comm``: every member
+        calls it at the same point.  The result composes with ``split``
+        and ``dup`` as any world comm does.  ``device`` as in
+        ``get_world_comm``.
+        """
+        from ..utils import config
+
+        rank = mpi_comm.Get_rank()
+        size = mpi_comm.Get_size()
+        hosts = mpi_comm.allgather(config.host_address())
+        base_port = mpi_comm.bcast(
+            _free_port_block(size) if rank == 0 else None, root=0)
+        return cls(rank=rank, size=size, coord=f"{hosts[0]}:{base_port}",
+                   device=device, hosts=",".join(hosts))
 
     def dup(self) -> "WorldComm":
         """Collective: a comm of the same ranks with its own message

@@ -20,11 +20,12 @@ The merged table is pushed into the transport (``tpucomm_set_coll_table``),
 which resolves ``algo=None`` per call from the payload size.  The cache
 file is the JAX package's, version for version and key for key, so a
 cache written by either package loads in the other; both default to the
-same directory.  The joint tuner's cost model and search (``_model.py``,
-``_joint.py`` there, ``--joint``, ``fit_model_from_events``,
-``cache_from_joint``) are not ported (ROADMAP.md); a v2 cache's ``combos``
-are validated against the joint space's grammar (``JOINT_CANDIDATES``,
-copied here) and kept as stored.
+same directory.  The joint tuner is the port's copy of the JAX package's:
+its cost model (``_model.py``, ``fit_model_from_events``), its search
+(``_joint.py``, ``python -m mpi4jax_tpu_torch.tune --joint``) and the v2
+cache of winning combinations (``cache_from_joint``); a v2 cache's
+``combos`` are validated against the joint space's grammar
+(``_joint.JOINT_CANDIDATES``) and kept as stored.
 
 Selection must agree on every rank of a comm (same cache, environment and
 override calls); the same-host shm arena wins over every pick.  Only
@@ -40,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..utils import config as _config
 from ..utils.algos import A2A_ALGOS, ALGO_CODES, QUANT_ALGOS, check_algo
+from ._joint import JOINT_CANDIDATES, check_combo, combo_algo, combo_gates
 
 ALGO_NAMES = {v: k for k, v in ALGO_CODES.items()}
 OPS = ("allreduce", "allgather", "alltoall")
@@ -71,43 +73,6 @@ QUANT_PROMOTE_WIRE_FRAC = 0.6
 
 #: algorithm labels whose recorded events carry tuning signal
 TRACE_ALGOS = frozenset(ALGO_CODES) - {"auto", "shm"}
-
-#: the joint space's combinations per op (``mpi4jax_tpu/tune/_joint.py:
-#: 74-85``): a v2 cache's ``combos`` are checked against these
-JOINT_CANDIDATES = {
-    "allreduce": ("ring", "rd", "tree", "qring", "qrd",
-                  "hring", "htree", "hring+q", "htree+q",
-                  "hring+ici", "htree+ici", "hring+q+ici", "htree+q+ici"),
-    "allgather": ("ring", "rd", "tree", "hring", "htree"),
-    "alltoall": ("ring", "qalltoall", "halltoall", "hqalltoall"),
-}
-
-
-def combo_algo(combo: str) -> str:
-    """The per-call-forcible algorithm under a combo label
-    (``"hring+q+ici"`` -> ``"hring"``)."""
-    return str(combo).split("+")[0]
-
-
-def combo_gates(combo: str) -> Dict[str, str]:
-    """The environment gates a combo needs to run as measured."""
-    legs = set(str(combo).split("+")[1:])
-    gates: Dict[str, str] = {}
-    if "q" in legs:
-        gates["MPI4JAX_TPU_COLL_QUANT"] = "force"
-    if "ici" in legs:
-        gates["MPI4JAX_TPU_ICI_LEG"] = "force"
-    return gates
-
-
-def check_combo(combo: str, op: str) -> str:
-    combo = str(combo).strip()
-    if combo not in JOINT_CANDIDATES.get(op, ()):
-        raise ValueError(
-            f"unknown joint combination {combo!r} for {op} "
-            f"(expected one of {JOINT_CANDIDATES.get(op)})")
-    return combo
-
 
 def _usable_trace_event(ev):
     """(op, nbytes, dur_s) for a native TCP-path collective event with an
@@ -643,6 +608,33 @@ def dispatch_fractions_from_events(events) -> Dict[str, Dict[int, Dict[str, floa
     }
 
 
+def fit_model_from_events(events, *, world_size: int = 0,
+                          topo_fingerprint: Optional[str] = None,
+                          source: str = "trace"):
+    """A :class:`_model.CostModel` fitted from a recorded run's events:
+    the per-(op, size, algorithm) medians become its samples, with the
+    recorded wire and dispatch fractions beside them (the event filter of
+    ``--from-trace``), stamped with the active knobs (a recording compares
+    only with runs under the same gates)."""
+    from . import _model
+
+    samples = measurements_from_events(events)
+    wire = wire_fractions_from_events(events)
+    disp = dispatch_fractions_from_events(events)
+    model = _model.CostModel(
+        world_size=world_size, topology=topo_fingerprint,
+        knobs=_config.knob_env(), source=source)
+    for op, by_size in samples.items():
+        for nbytes, by_algo in by_size.items():
+            for algo, med in by_algo.items():
+                model.add_sample(
+                    op, algo, nbytes, med,
+                    wire_frac=wire.get(op, {}).get(nbytes, {}).get(algo),
+                    dispatch_frac=disp.get(op, {}).get(nbytes, {})
+                    .get(algo))
+    return model
+
+
 def collect_trace_events(paths: Sequence[str], obs_dump=None):
     """Load recorded events from part files / merged traces with the
     elastic world-generation gate applied: a file spanning generations
@@ -758,6 +750,33 @@ def cache_from_trace(paths: Sequence[str], world_size: Optional[int] = None,
     table = {op: entries_from_measurements(b) for op, b in best.items()}
     return save_cache(n, table, measurements, path=cache_path_override,
                       transport="tcp:from-trace")
+
+
+def cache_from_joint(world_size: int, best: Dict[str, Dict[int, str]],
+                     measurements=(), *, path: Optional[str] = None,
+                     topo_fingerprint: Optional[str] = None,
+                     model_file: Optional[str] = None) -> str:
+    """Write the v2 joint cache from the winning combos per (op, size)
+    (``--joint``'s output): ``combos`` records the whole winning
+    combination per size band, and the derived ``table`` the per-call
+    forcible algorithm under each, so the transport's install and v1
+    readers see what they always did."""
+    combos = {op: entries_from_measurements(b) for op, b in best.items()}
+
+    def _algo_entries(op, entries):
+        out: List[Entry] = []
+        for mb, combo in entries:
+            algo = check_algo(combo_algo(combo), op)
+            if not out or out[-1][1] != algo:
+                out.append((mb, algo))
+        return out
+
+    table = {op: _algo_entries(op, entries)
+             for op, entries in combos.items()}
+    return save_cache(world_size, table, measurements, path=path,
+                      transport="tcp:joint",
+                      topo_fingerprint=topo_fingerprint, combos=combos,
+                      model_path=model_file)
 
 
 def install(world_size: Optional[int] = None, topology=None) -> bool:

@@ -24,7 +24,13 @@ typo silently changes routing or numerics.
 - ``MPI4JAX_TPU_TUNE_CACHE``: the full path of the persistent tune cache
   (``tune.cache_path``);
 - ``MPI4JAX_TPU_COLL_ALGO``: the operator's algorithm override, the
-  strongest layer of ``tune``'s table (parsed by ``tune._env_table``).
+  strongest layer of ``tune``'s table (parsed by ``tune._env_table``);
+- ``MPI4JAX_TPU_HOST``: this rank's reachable address for
+  ``WorldComm.from_mpi`` (default 127.0.0.1);
+- ``MPI4JAX_TPU_CKPT_DIR``: the default directory of the sharded
+  checkpoints (``utils/checkpoint.py``);
+- ``MPI4JAX_TPU_TUNE_MODEL``: the full path of the joint tuner's cost-model
+  file (``tune._model.model_path``).
 
 ``knob_env`` stamps the resolved gates into tune caches and benchmark
 records, as the JAX package does.  Plan execution (``MPI4JAX_TPU_PLAN``)
@@ -139,6 +145,26 @@ def plan_spec() -> Optional[str]:
     if not raw or raw.lower() in ("0", "false", "off", "no"):
         return None
     return raw
+
+
+def host_address() -> str:
+    """``MPI4JAX_TPU_HOST``: this rank's reachable address, which
+    ``WorldComm.from_mpi`` shares with its peers (default 127.0.0.1)."""
+    return os.environ.get("MPI4JAX_TPU_HOST", "127.0.0.1")
+
+
+def ckpt_dir() -> Optional[str]:
+    """``MPI4JAX_TPU_CKPT_DIR``: the default sharded-checkpoint directory,
+    or None (callers must pass one explicitly)."""
+    raw = os.environ.get("MPI4JAX_TPU_CKPT_DIR")
+    return raw if raw else None
+
+
+def tune_model_path() -> Optional[str]:
+    """``MPI4JAX_TPU_TUNE_MODEL``: an explicit cost-model file path, or
+    None."""
+    raw = os.environ.get("MPI4JAX_TPU_TUNE_MODEL")
+    return raw if raw and raw.strip() else None
 
 
 def knob_env() -> dict:

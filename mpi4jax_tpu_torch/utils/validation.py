@@ -128,16 +128,6 @@ def check_reduce_dtype(op_name: str, reduce_op, x, comm):
         raise ValidationError(f"{err}{op_context(op_name, comm, x)}") from None
 
 
-def check_no_token(op: str, token, comm=None, x=None):
-    """The token API is not ported: eager program order is the ordering
-    contract of both tiers."""
-    if token is not None:
-        fail("token= is not supported: the port runs eagerly, so program "
-             "order is the order of the ops (the token API is queued in "
-             "ROADMAP.md §1 item 4)", op=op, comm=comm, x=x,
-             exc=NotImplementedError)
-
-
 def check_in_range(name: str, value: int, size: int, *, op=None, comm=None):
     """``value`` must lie in ``[0, size)``."""
     if not 0 <= value < size:

@@ -217,15 +217,17 @@ def test_send_recv_raise_on_the_mesh():
 def test_front_arguments():
     comm = mt.make_mesh(4, device="cpu")
     x = torch.ones(4, 4)
-    t = torch.zeros(())
-    for call in (lambda: mt.alltoall(x, comm=comm, token=t),
-                 lambda: mt.bcast(x, comm=comm, token=t),
-                 lambda: mt.reduce(x, comm=comm, token=t),
-                 lambda: mt.gather(x, comm=comm, token=t),
-                 lambda: mt.scatter(x, comm=comm, token=t),
-                 lambda: mt.barrier(comm=comm, token=t)):
-        with pytest.raises(NotImplementedError, match="token"):
-            call()
+    # token= returns (result, token), the result the tokenless call's; a
+    # token that is no tensor raises TypeError, as in the JAX package
+    t = mt.create_token(x)
+    for fn in (mt.alltoall, mt.bcast, mt.reduce, mt.gather, mt.scatter):
+        got, tok = fn(x, comm=comm, token=t)
+        assert got.numpy().tobytes() == fn(x, comm=comm).numpy().tobytes()
+        assert tok.dtype == torch.uint32 and tok.dim() == 0
+        with pytest.raises(TypeError, match="token"):
+            fn(x, comm=comm, token=object())
+    assert mt.barrier(comm=comm, token=t) is t
+    assert mt.barrier(comm=comm) is None
     with pytest.raises(NotImplementedError, match="compression"):
         mt.alltoall(x, comm=comm, compression="int8")
     with pytest.raises(NotImplementedError, match="algo"):

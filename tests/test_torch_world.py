@@ -91,14 +91,15 @@ def test_world_front_checks_need_no_transport(monkeypatch):
             mpi4jax_tpu.allreduce(jnp.ones(8), comm=jcomm, **kw)
         with pytest.raises(ValueError):
             ops.allreduce(x, comm=comm, **kw)
-    # what stays unported raises NotImplementedError naming ROADMAP.md:
-    # token= (the alltoall family and MPI4JAX_TPU_COLL_ALGO are ported)
+    # a token that is no tensor raises TypeError before any transport use
+    # (the token API is ported; the JAX package's optimization_barrier
+    # raises TypeError on such a token)
     rows = torch.ones(4, 2)
     for call in (lambda: ops.allreduce(x, comm=comm, token=object()),
                  lambda: ops.bcast(x, 0, comm=comm, token=object()),
                  lambda: ops.barrier(comm=comm, token=object()),
                  lambda: ops.alltoall(rows, comm=comm, token=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="token"):
             call()
     # an allreduce schedule on the alltoall, and int8 with algo=, are
     # refused by both fronts before any transport use
