@@ -220,7 +220,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``MPI4JAX_TPU_COLL_QUANT=force``), the recorder's cost, each timed;
    then the merged trace validates, ``profile report --json`` holds the
    four alltoall schedules and the ``ici`` allreduce with nothing dropped,
-   and ``tune --from-trace`` gives a cache that loads;
+   and ``tune --from-trace`` gives a cache that loads.  The job's launch
+   carries ``--verify`` (path (n2)): the static verifier runs the program
+   in its virtual world first, with the ranks' environment, and the
+   launcher must say it is clean at np=4;
 31. path (m): (m1) the joint tuner (``python -m mpi4jax_tpu_torch.tune
    --joint --np 4 --topk 3`` on ``r0,r1|r2,r3``, allreduce, allgather and
    alltoall from 1 KiB to 16 MiB) writes a v2 cache and a cost-model file,
@@ -241,12 +244,26 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (m3) ``compat.token_api``'s allreduce, sendrecv(shift=1), barrier and
    allgather chained on a 4-rank mesh comm at 16 MiB f32 a rank, each
    result bit for bit the tokenless call's, with the tokenless chain's
-   launches of kernels 1 and 3; the phase's seconds.
+   launches of kernels 1 and 3; the phase's seconds;
+32. path (n), the static communication verifier on the card (every rank
+   thread's tensors on ``cuda``; every world op served on the host): (n1)
+   ``python -m mpi4jax_tpu_torch.analyze -m
+   mpi4jax_tpu_torch.benchmarks.moe_world --np 4 --json --schedules`` with
+   phase 30's arguments, tune cache and islands must report clean, and
+   each rank's world ops (kind and bytes) must equal what phase 30's
+   transport ran: the ops before the recorder's last restart, which the
+   trace cannot hold (``unrecorded_ops``), then that rank's top-level ops
+   in the merged trace; (n3) the analyzer on path (k)'s program
+   (``benchmarks.sw_world --grid 2 2``) at 1800x3600 and ``N_DAYS`` model
+   days must report clean with halo exchanges on every rank; (n4)
+   ``launch -n 2 --verify tests/torch_world_programs/tag_mismatch.py``
+   must exit 3, name the ``tag_mismatch`` finding and start no rank; the
+   seconds and events per rank of each.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-31 on the CPU through the plain versions at a small size and prints
+23-32 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -366,6 +383,10 @@ L_SMALL = ["--device", "cpu", "--tokens", "64", "--d-model", "16",
 M_SIZES = (16 * 1024 * 1024, 64 * 1024 * 1024)
 M_SMALL_SIZES = "1024,65536"
 M_SMALL_COUNTS = (256, 16384)
+# phase 32, path (n): the verifier's deadline, and path (k)'s model days in
+# the virtual world
+N_TIMEOUT_S = 900
+N_DAYS = DAYS
 M_SMALL_GPT = gpt.GPTConfig(vocab=256, d_model=32, n_heads=4, n_layers=2,
                             d_ff=128, max_seq=32, dtype="bfloat16")
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1955,14 +1976,19 @@ def path_l(on_card, card):
     must validate, ``profile report --json`` must hold a row for each of
     the four alltoall schedules and for the leg's ``ici`` allreduce with
     nothing dropped, and ``tune --from-trace`` must give a cache that
-    loads."""
+    loads.  The job's launch carries ``--verify`` (path (n2)): the static
+    verifier runs the program in its virtual world first, with the ranks'
+    environment, and must say it is clean at np=4.  Returns the record,
+    each rank's top-level world ops in the merged trace and the tune
+    cache, which path (n1) reads."""
     if on_card:
         torch.cuda.empty_cache()
     py = sys.executable
     with tempfile.TemporaryDirectory(prefix="path_l_") as tmp:
         cache = os.path.join(tmp, "tune_4.json")
         env = dict(os.environ, MPI4JAX_TPU_DISABLE_SHM="1",
-                   MPI4JAX_TPU_TUNE_CACHE=cache)
+                   MPI4JAX_TPU_TUNE_CACHE=cache,
+                   MPI4JAX_TPU_ANALYZE_TIMEOUT_S=str(N_TIMEOUT_S))
         t0 = time.perf_counter()
         proc = _run("the tuner", [
             py, "-m", "mpi4jax_tpu_torch.tune", "--np", "4", "--sizes",
@@ -1978,16 +2004,25 @@ def path_l(on_card, card):
                             for a, t in w["seconds"].items()))
         trace = os.path.join(tmp, "l.json")
         t0 = time.perf_counter()
-        _run("the path (l) job", [
+        job = _run("the path (l) job", [
             py, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n", "4",
             "--fake-hosts", ici_leg.FAKE_HOSTS, "--trace", trace,
-            "--timeout", "600", "-m", "mpi4jax_tpu_torch.benchmarks.moe_world",
-            "--out", tmp] + ([] if on_card else L_SMALL), env, 900)
+            "--timeout", "600", "--verify",
+            "-m", "mpi4jax_tpu_torch.benchmarks.moe_world",
+            "--out", tmp] + ([] if on_card else L_SMALL), env,
+            900 + N_TIMEOUT_S)
         job_secs = time.perf_counter() - t0
+        if "clean at np=4" not in job.stderr:
+            fail("path (n2): launch --verify did not say the program is "
+                 f"clean at np=4:\n{job.stderr[-3000:]}")
         with open(os.path.join(tmp, "record.json")) as f:
             rec = json.load(f)
         with open(trace) as f:
-            errors = obs.validate_chrome_trace(json.load(f))
+            merged = json.load(f)
+        errors = obs.validate_chrome_trace(merged)
+        trace_ops = trace_world_ops(merged)
+        with open(cache) as f:
+            cache_text = f.read()
         if errors:
             fail(f"path (l): the merged trace is invalid: {errors[:3]}")
         parts = obs.part_paths(trace)
@@ -2064,7 +2099,173 @@ def path_l(on_card, card):
         f"dropped; ici rows {len(ici)}; trace valid; from-trace cache "
         f"{ft_table}; tuner {tune_secs:.1f} s, job {job_secs:.1f} s [{card}]")
     return dict(rec, winners=winners, from_trace=ft_table,
-                tune_seconds=tune_secs, job_seconds=job_secs)
+                tune_seconds=tune_secs, job_seconds=job_secs,
+                trace_ops=trace_ops, tune_cache=cache_text)
+
+_ITEMSIZE = {"bool": 1, "int8": 1, "uint8": 1, "int16": 2, "uint16": 2,
+             "float16": 2, "bfloat16": 2, "int32": 4, "uint32": 4,
+             "float32": 4, "int64": 8, "uint64": 8, "float64": 8,
+             "complex64": 8, "complex128": 16}
+
+
+def schedule_op(line):
+    """``(kind, bytes)`` of one event of an analyzer schedule (``"alltoall
+    float32[4x2560x768] @ site"``), in the bytes the ops layer's span
+    records for it (a sendrecv's span counts both directions)."""
+    head = line.split(" @ ", 1)[0].split()
+    nbytes = 0
+    for word in head[1:]:
+        dtype, _, dims = word.partition("[")
+        if dims.endswith("]") and dtype in _ITEMSIZE:
+            nbytes = _ITEMSIZE[dtype]
+            for d in filter(None, dims[:-1].split("x")):
+                nbytes *= int(d)
+    return head[0], 2 * nbytes if head[0] == "sendrecv" else nbytes
+
+
+def trace_world_ops(merged):
+    """Each rank's top-level world ops in a merged trace, in time order:
+    the ops layer's spans (``CallTrace``), the nested leg spans (with a
+    ``tier``) left out, as ``(kind, bytes)``."""
+    per = {}
+    for e in merged["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "ops" \
+                or "tier" in e.get("args", {}):
+            continue
+        per.setdefault(int(e["pid"]), []).append(
+            (e["ts"], e["name"].lower(), int(e["args"]["bytes"])))
+    return {r: [(k, b) for _, k, b in sorted(v, key=lambda t: t[0])]
+            for r, v in per.items()}
+
+
+def unrecorded_ops(args_small, n=4):
+    """The world ops path (l)'s program issues before its recording
+    starts (``moe_world``: the two warm-up calls, then the recorder's
+    rounds, each call behind a barrier), which the trace cannot hold."""
+    ap = {"tokens": moe_world.TOKENS, "d_model": moe_world.D_MODEL,
+          "reps": 10, "small_reps": 100}
+    for flag, key in (("--tokens", "tokens"), ("--d-model", "d_model"),
+                      ("--reps", "reps"), ("--small-reps", "small_reps")):
+        if flag in args_small:
+            ap[key] = int(args_small[args_small.index(flag) + 1])
+    from mpi4jax_tpu_torch.parallel import moe
+
+    cap = moe.expert_capacity(ap["tokens"], n, moe_world.CAPACITY_FACTOR)
+    a2a = ("alltoall", 4 * n * cap * ap["d_model"])
+    small = ("allreduce", moe_world.REC_BYTES)
+    one_round = ([("barrier", 0), a2a] * ap["reps"]
+                 + [("barrier", 0), small] * ap["small_reps"])
+    return [a2a, small] + one_round * (2 * moe_world.REC_ROUNDS)
+
+
+def path_n(on_card, card, l_run, shape):
+    """Phase 32: path (n), the static communication verifier on the card.
+    (n1) the analyzer CLI on path (l)'s program with phase 30's arguments
+    (``-m mpi4jax_tpu_torch.benchmarks.moe_world`` at np 4, ``--json
+    --schedules``), under phase 30's tune cache and islands: clean, and
+    each rank's world ops (kind, bytes) equal to what the transport ran:
+    the ops before the recorder's last restart (``unrecorded_ops``), then
+    that rank's top-level ops in phase 30's merged trace.  (n2) is phase
+    30's ``--verify``.  (n3) the analyzer on path (k)'s program
+    (``benchmarks.sw_world --grid 2 2``) at ``shape``: clean, with halo
+    exchanges on every rank.  (n4) ``launch -n 2 --verify`` of
+    ``tests/torch_world_programs/tag_mismatch.py``: exit 3, the finding
+    named, no rank started.  Every rank thread's tensors live on the
+    card."""
+    if on_card:
+        torch.cuda.empty_cache()
+    py = sys.executable
+    dev_args = [] if on_card else ["--device", "cpu"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="path_n_") as tmp:
+        cache = os.path.join(tmp, "tune_4.json")
+        with open(cache, "w") as f:
+            f.write(l_run["tune_cache"])
+        env = dict(os.environ, MPI4JAX_TPU_DISABLE_SHM="1",
+                   MPI4JAX_TPU_TUNE_CACHE=cache,
+                   MPI4JAX_TPU_FAKE_HOSTS=ici_leg.FAKE_HOSTS)
+        analyze = [py, "-m", "mpi4jax_tpu_torch.analyze", "--np", "4",
+                   "--json", "--schedules", "--timeout", str(N_TIMEOUT_S)]
+        # (n1)
+        l_out = os.path.join(tmp, "n1")
+        os.makedirs(l_out)
+        t0 = time.perf_counter()
+        proc = _run("(n1) the analyzer on path (l)'s program", analyze + [
+            "-m", "mpi4jax_tpu_torch.benchmarks.moe_world", "--",
+            "--out", l_out] + ([] if on_card else L_SMALL), env,
+            N_TIMEOUT_S + 120)
+        secs = time.perf_counter() - t0
+        rep = json.loads(proc.stdout)
+        if not rep["ok"] or rep["findings"]:
+            fail(f"path (n1): findings on path (l)'s program: "
+                 f"{rep['findings'][:3]}")
+        if os.listdir(l_out):
+            fail(f"path (n1): the analyzed program wrote {os.listdir(l_out)}")
+        prefix = unrecorded_ops([] if on_card else L_SMALL)
+        counts = {}
+        for r, lines in sorted(rep["schedules"].items(), key=lambda t:
+                               int(t[0])):
+            got = [schedule_op(line) for line in lines]
+            want = prefix + l_run["trace_ops"].get(int(r), [])
+            if got != want:
+                first = next((i for i, (a, b) in enumerate(zip(got, want))
+                              if a != b), min(len(got), len(want)))
+                fail(f"path (n1): rank {r}'s analyzed ops differ from what "
+                     f"the transport ran at op {first} of {len(got)} / "
+                     f"{len(want)}: {got[first:first + 3]} against "
+                     f"{want[first:first + 3]}")
+            counts[int(r)] = len(got)
+        log(f"  (n1) path (l)'s program analyzed clean at np=4 in "
+            f"{secs:.1f} s ({rep['cache_key']}); events per rank {counts}, "
+            f"each rank's equal to phase 30's: {len(prefix)} before the "
+            f"recording, then the trace's {len(l_run['trace_ops'][0])} "
+            f"[{card}]")
+        out["n1"] = {"seconds": secs, "events_per_rank": counts,
+                     "unrecorded": len(prefix),
+                     "cache_key": rep["cache_key"]}
+        # (n3)
+        days = N_DAYS if on_card else 0.02
+        if days != DAYS:
+            log(f"  (n3) --days cut from {DAYS} to {days}")
+        t0 = time.perf_counter()
+        proc = _run("(n3) the analyzer on path (k)'s program", analyze + [
+            "-m", "mpi4jax_tpu_torch.benchmarks.sw_world", "--",
+            "--grid", str(GRID[0]), str(GRID[1]), "--size",
+            str(shape[0]), str(shape[1]), "--days", str(days)] + dev_args,
+            env, N_TIMEOUT_S + 120)
+        secs = time.perf_counter() - t0
+        rep = json.loads(proc.stdout)
+        if not rep["ok"] or rep["findings"]:
+            fail(f"path (n3): findings on path (k)'s program: "
+                 f"{rep['findings'][:3]}")
+        halos = {int(r): sum(line.startswith("shift2 ") for line in lines)
+                 for r, lines in rep["schedules"].items()}
+        if sorted(halos) != list(range(4)) or min(halos.values()) == 0:
+            fail(f"path (n3): halo exchanges per rank {halos}")
+        log(f"  (n3) path (k)'s program at {tuple(shape)}, {days} day, "
+            f"analyzed clean at np=4 in {secs:.1f} s; events per rank "
+            f"{ {int(r): len(v) for r, v in rep['schedules'].items()} }, "
+            f"of them halo exchanges {halos} [{card}]")
+        out["n3"] = {"seconds": secs, "days": days, "halos": halos}
+        # (n4)
+        t0 = time.perf_counter()
+        bad = subprocess.run(
+            [py, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n", "2",
+             "--verify", os.path.join("tests", "torch_world_programs",
+                                      "tag_mismatch.py")] + dev_args,
+            env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if bad.returncode != 3 or "tag_mismatch" not in bad.stderr \
+                or "no rank was spawned" not in bad.stderr \
+                or "UNREACHABLE" in bad.stdout + bad.stderr:
+            fail(f"path (n4): launch --verify of tag_mismatch.py exited "
+                 f"{bad.returncode}:\n{bad.stdout[-2000:]}\n"
+                 f"{bad.stderr[-2000:]}")
+        log(f"  (n4) launch -n 2 --verify tag_mismatch.py: exit 3, "
+            f"tag_mismatch named, no rank started, {secs:.1f} s")
+        out["n4"] = {"seconds": secs}
+    return out
+
 
 def _joint_pick(combos, nbytes):
     """The combo of ``combos`` (a v2 cache's entries for one op, ``[(min
@@ -2417,7 +2618,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-31 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-32 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -2572,11 +2773,14 @@ def main(argv=None):
     log(f"phase 30: path (l), the tuner, then moe_ffn and the alltoall "
         f"family on {WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS} with "
         f"the recorder [{card}]")
-    path_l(on_card, card)
+    l_run = path_l(on_card, card)
     log(f"phase 31: path (m), the joint tuner and algo=None under its cache "
         f"on {WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS}, checkpoint "
         f"and resume, the token chain [{card}]")
     m_run = path_m(dev, shape, on_card, card)
+    log(f"phase 32: path (n), the static verifier: path (l)'s and path "
+        f"(k)'s programs at np=4, a refused launch [{card}]")
+    path_n(on_card, card, l_run, shape)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:

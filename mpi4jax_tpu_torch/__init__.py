@@ -68,7 +68,14 @@ Ported so far:
   ``runtime.distributed``); checkpoints (``utils/checkpoint.py``, files
   either package reads); and the joint tuner (``tune/_model.py``,
   ``tune/_joint.py``, ``python -m mpi4jax_tpu_torch.tune --joint``),
-  whose ``+ici`` sub-jobs run the intra-island leg's kernels 3 and 4.
+  whose ``+ici`` sub-jobs run the intra-island leg's kernels 3 and 4;
+- the static communication verifier (``analysis/``: ``check``,
+  ``check_program``, ``plan_for``; ``python -m
+  mpi4jax_tpu_torch.analyze``; the launcher's ``--verify``): a program
+  runs once per rank as threads of one process, its world ops served in
+  memory, and mismatched collectives, unpaired sends and receives,
+  deadlocks and forked token chains are reported before any rank starts,
+  in the JAX package's report and plan formats.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``.

@@ -39,6 +39,14 @@ the shm arena wins over every forced one).  Each rank, on ``--device``
 Rank 0 prints one JSON record (or writes ``DIR/record.json`` with
 ``--out``): per route and schedule the slowest rank's median ms, the
 errors, the launches of kernels 3 and 4, the events recorded and dropped.
+
+The same program runs under the static verifier (``python -m
+mpi4jax_tpu_torch.analyze -m mpi4jax_tpu_torch.benchmarks.moe_world --np
+4``, or ``launch --verify``), which serves every route exactly
+(``comm.coll_algo`` answers ``"analysis"``): there each check's oracle is
+the exact result (the plain rank-order fold for the leg), the recorder is
+left alone (its on/off rounds still run their calls) and no record is
+written, so a pre-flight leaves nothing in ``--out``.
 ``--family COUNTS`` is the test mode instead: every schedule and
 ``compression="int8"`` on f32, bf16 and int32 payloads, and ``moe_ffn`` on
 a small layer, each rank's outputs written to ``DIR/rank<r>.npz`` for the
@@ -249,17 +257,28 @@ def _path_rank(comm, dev, args):
     from mpi4jax_tpu_torch.utils import tracing
 
     rank, n = comm.rank(), comm.size()
-    h = comm.handle
     t = comm.topology()
+    # the static verifier's virtual world serves every route exactly
+    served_exactly = comm.coll_algo("alltoall", 0) == "analysis"
     sources = tune.sources()
     if not any(s.startswith("cache:") for s in sources):
         raise AssertionError(f"rank {rank}: no tune cache in {sources}")
-    if not obs.enabled():
+    if not served_exactly and not obs.enabled():
         raise AssertionError(f"rank {rank}: the recorder is not armed "
                              "(run under launch --trace)")
 
     def barrier():
-        bridge.barrier(h)
+        mt.barrier(comm=comm)
+
+    def recorder(on):
+        # the recorder's rounds; the virtual world records nothing
+        if served_exactly:
+            return
+        if on:
+            obs.start(lib=bridge.get_lib(), rank=rank, size=n,
+                      clock_offset_s=offset_s)
+        else:
+            obs.stop()
 
     d, ff, tok = args.d_model, args.d_ff, args.tokens
     cap = moe.expert_capacity(tok, n, CAPACITY_FACTOR)
@@ -286,25 +305,24 @@ def _path_rank(comm, dev, args):
     for _ in range(REC_ROUNDS):
         for state in ("on", "off"):
             if state == "off":
-                obs.stop()
+                recorder(False)
             for k, (fn, reps) in calls.items():
                 rounds[f"{k}_{state}"].append(_median_ms(fn, reps, dev,
                                                          barrier))
             if state == "off":
-                obs.start(lib=bridge.get_lib(), rank=rank, size=n,
-                          clock_offset_s=offset_s)
+                recorder(True)
     rec_ms = {k: statistics.median(v) for k, v in rounds.items()}
     trace_us = {}
     for state in ("on", "off"):
         if state == "off":
-            obs.stop()
+            recorder(False)
         t0 = time.perf_counter()
         for _ in range(TRACE_CALLS):
             with tracing.CallTrace(rank, "Alltoall", "", nbytes=disp_bytes):
                 pass
         trace_us[state] = (time.perf_counter() - t0) / TRACE_CALLS * 1e6
-    obs.start(lib=bridge.get_lib(), rank=rank, size=n,
-              clock_offset_s=offset_s)
+    # the recording holds what follows: the job's trace starts here
+    recorder(True)
 
     # ---- moe_ffn, four routes ---------------------------------------
     params = moe.init_moe_params(d, ff, n, args.seed)
@@ -320,7 +338,7 @@ def _path_rank(comm, dev, args):
     for label, kw in ROUTES.items():
         got = moe.moe_ffn(x, p, comm=comm, **kw).cpu().numpy()
         algo = kw.get("algo") or ("qalltoall" if kw else rec["auto_pick"])
-        exact = algo in ("ring", "halltoall")
+        exact = served_exactly or algo in ("ring", "halltoall")
         moe_err[label] = _check(f"rank {rank} moe_ffn {label}", got, ref,
                                 exact=exact)
         moe_ms[label] = _median_ms(
@@ -335,8 +353,10 @@ def _path_rank(comm, dev, args):
     del every
     exact = topo.simulate_halltoall(inputs)  # the permutation, bit for bit
     sims = {"ring": exact, "halltoall": exact,
-            "qalltoall": topo.simulate_qalltoall(inputs),
-            "hqalltoall": topo.simulate_hqalltoall(inputs, t.islands)}
+            "qalltoall": exact if served_exactly
+            else topo.simulate_qalltoall(inputs),
+            "hqalltoall": exact if served_exactly
+            else topo.simulate_hqalltoall(inputs, t.islands)}
     del inputs, exact
     a2a_ms = {}
     for algo in FAMILY:
@@ -365,8 +385,14 @@ def _path_rank(comm, dev, args):
             _collectives.LAUNCHES["fused_ring"] = 0
             quantized.LAUNCHES["quant_pack"] = 0
             out = mt.allreduce(lx, comm=comm, algo="hring").cpu().numpy()
-            want, kind, exact_sum = ici_leg.expected(parts, t.islands,
-                                                     "hring", True, quant)
+            if served_exactly:  # the plain rank-order fold
+                want = parts[0]
+                for part in parts[1:]:
+                    want = want + part
+                kind, exact_sum = "bits", want
+            else:
+                want, kind, exact_sum = ici_leg.expected(
+                    parts, t.islands, "hring", True, quant)
             err = ici_leg._check(out, want, kind, exact_sum,
                                  f"rank {rank} leg {label}")
             ms = _median_ms(lambda: mt.allreduce(lx, comm=comm,
@@ -397,13 +423,15 @@ def _path_rank(comm, dev, args):
     vals = ([moe_ms[k] for k in moe_ms] + [a2a_ms[k] for k in a2a_ms]
             + [leg[k]["ms"] for k in leg] + list(rec_ms.values())
             + list(trace_us.values()))
-    allv = bridge.allgather(h, np.array(vals, np.float64), n)
-    counts = bridge.allgather(h, np.array(
+    allv = mt.allgather(torch.tensor(vals, dtype=torch.float64, device=dev),
+                        comm=comm).cpu().numpy()
+    counts = mt.allgather(torch.tensor(
         [len(events), sum(stats["dropped"].values())]
         + [leg[k]["launches"][c] for k in leg
-           for c in ("fused_ring", "quant_pack")], np.int64), n)
+           for c in ("fused_ring", "quant_pack")], dtype=torch.int64,
+        device=dev), comm=comm).cpu().numpy()
     slow = dict(zip(keys, allv.max(0).tolist()))
-    bridge.barrier(h)
+    mt.barrier(comm=comm)
     if rank != 0:
         return None
     rec.update({
@@ -439,6 +467,8 @@ def run_rank(args) -> None:
         _family_rank(comm, dev, counts, args.out)
         return
     rec = _path_rank(comm, dev, args)
+    if comm.coll_algo("alltoall", 0) == "analysis":
+        return  # under the static verifier: nothing for a job to read
     if rec is not None:
         line = json.dumps(rec)
         if args.out:

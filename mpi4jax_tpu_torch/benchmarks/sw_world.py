@@ -18,6 +18,10 @@ rank running ``WorldShallowWater`` on its block with its halos on
   the stream: the median over those steps of the halo time over the step
   time; rank 0's, and the largest of any rank.  The synchronizations slow
   the step, so the share is one of an instrumented step.
+- **Under the static verifier** (``python -m mpi4jax_tpu_torch.analyze -m
+  mpi4jax_tpu_torch.benchmarks.sw_world --np 4 -- --grid 2 2``) the same
+  program runs in the virtual world: every exchange is recorded, and the
+  timings are the virtual world's.
 - **What it writes.**  Rank 0 prints one line (``--json``: the record as
   JSON) and, with ``--check-out PATH``, saves the gathered ``h``, ``u`` and
   ``v`` and the record to that ``.npz``.  h must stay finite.
@@ -96,7 +100,6 @@ def run_grid(comm, grid, size, days, check_out=None) -> dict:
     from mpi4jax_tpu_torch.models.shallow_water import SWParams
     from mpi4jax_tpu_torch.models.shallow_water_world import \
         WorldShallowWater
-    from mpi4jax_tpu_torch.runtime import bridge
 
     t_start = time.perf_counter()
     dev = comm.device
@@ -117,12 +120,15 @@ def run_grid(comm, grid, size, days, check_out=None) -> dict:
     _sync(dev)
     mine = time.perf_counter() - t0
     exchanges = (model.exchanges - ex0) / max(n_steps - 1, 1)
-    seconds = float(bridge.allgather(comm.handle, np.array([mine]),
-                                     n).max())
+    seconds = float(mt.allgather(
+        torch.tensor([mine], dtype=torch.float64, device=dev),
+        comm=comm).max())
     if not bool(torch.isfinite(out.h).all()):
         raise AssertionError(f"rank {comm.rank()}: h is not finite")
     halo = _halo_share(model, out, HALO_STEPS, dev)
-    shares = bridge.allgather(comm.handle, np.array([halo[2]]), n)[:, 0]
+    shares = mt.allgather(
+        torch.tensor([halo[2]], dtype=torch.float64, device=dev),
+        comm=comm)[:, 0].cpu().numpy()
     m0, m1 = model.total_mass(s0), model.total_mass(out)
     fields = {k: model.gather_global(getattr(out, k)) for k in "huv"}
     rec = None
@@ -147,7 +153,7 @@ def run_grid(comm, grid, size, days, check_out=None) -> dict:
             np.savez(check_out, record=np.array(json.dumps(rec)), **fields)
     mt.barrier(comm=comm)
     if model.grid._col_comm is not None:
-        bridge.comm_finalize(model.grid._col_comm.handle)
+        model.grid._col_comm.finalize()
     return rec
 
 
@@ -165,7 +171,7 @@ def _world(device):
 def _job(spec) -> None:
     """The ranks' side of ``run_job``: each run on the first ``gy * gx``
     ranks (a sub-communicator), one after the other."""
-    from mpi4jax_tpu_torch.runtime import bridge
+    import mpi4jax_tpu_torch as mt
 
     world = _world(spec["device"])
     for i, (grid, size) in enumerate(spec["runs"]):
@@ -175,9 +181,9 @@ def _job(spec) -> None:
         if sub is not None:
             run_grid(sub, tuple(grid), tuple(size), spec["days"],
                      os.path.join(spec["out"], f"run{i}.npz"))
-            bridge.comm_finalize(sub.handle)
-    bridge.barrier(world.handle)
-    bridge.comm_finalize(world.handle)
+            sub.finalize()
+    mt.barrier(comm=world)
+    world.finalize()
 
 
 def run_job(runs, out_dir, *, days=0.1, device="cuda",
@@ -226,12 +232,10 @@ def main(argv=None) -> int:
         with open(args.job) as f:
             _job(json.load(f))
         return 0
-    from mpi4jax_tpu_torch.runtime import bridge
-
     world = _world(args.device)
     grid = tuple(args.grid) if args.grid else (1, world.size())
     rec = run_grid(world, grid, args.size, args.days, args.check_out)
-    bridge.comm_finalize(world.handle)
+    world.finalize()
     if rec is not None:
         print(json.dumps(rec) if args.json else
               f"sw_world: {rec['steps']} steps on grid {rec['grid']} in "

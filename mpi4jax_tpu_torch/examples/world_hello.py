@@ -17,7 +17,6 @@ ranks share one card) unless ``--device`` names another.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import torch
@@ -30,7 +29,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if os.environ.get("MPI4JAX_TPU_RANK") is None:
+    if not transport.in_world():  # a launched rank, or the verifier's
         sys.exit("run me under the launcher: python -m "
                  "mpi4jax_tpu_torch.runtime.launch -n 4 -m "
                  "mpi4jax_tpu_torch.examples.world_hello")

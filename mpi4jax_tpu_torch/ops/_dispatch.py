@@ -12,6 +12,9 @@ adds no edge that the program does not have.  It is a 0-d ``uint32`` zero
 on the comm's device, the JAX package's token dtype.  Threading it never
 touches the op's inputs or result, so a tokened call gives bit for bit the
 tokenless call's result, launches the same kernels, and keeps autograd.
+Under the static verifier (``analysis/``) the tokens of
+``explicit_token_ordering`` feed its chain guard
+(``_world_impl.chain_token``).
 """
 
 from __future__ import annotations
@@ -35,8 +38,15 @@ def _device_of(x=None, comm=None):
 def create_token(x=None, *, comm=None):
     """A fresh ordering token: a 0-d ``uint32`` zero on ``x``'s device (or
     the comm's, or the ambient comm's).  ``x`` only places it: in eager
-    order every earlier op on ``x`` has already been issued."""
-    return torch.zeros((), dtype=TOKEN_DTYPE, device=_device_of(x, comm))
+    order every earlier op on ``x`` has already been issued.  Under the
+    static verifier the chain guard notes a bare token as fresh (one tied
+    to ``x`` roots a new chain), as in the JAX package (``:43-57`` there)."""
+    token = torch.zeros((), dtype=TOKEN_DTYPE, device=_device_of(x, comm))
+    if x is None:
+        from . import _world_impl
+
+        _world_impl._chain_guard.note_fresh(token)
+    return token
 
 
 def attach(result, token):
@@ -48,6 +58,15 @@ def attach(result, token):
     if token is None:
         return result
     return result, token
+
+
+def attach_world(result, token, comm):
+    """``attach`` for a world-tier front: the chain guard sees the op
+    first (``_world_impl.chain_token``), which under the static verifier
+    may hand back a new token."""
+    from . import _world_impl
+
+    return attach(result, _world_impl.chain_token(comm, token))
 
 
 def check_token(token):

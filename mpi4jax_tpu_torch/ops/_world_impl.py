@@ -27,6 +27,11 @@ callbacks into the native transport.  Here each op is a staged function:
 Program order is the ordering contract: every rank calls the ops of a comm
 in the same order, as in the JAX package's ordered effects.
 
+**analysis.**  Each staged op first offers itself to the static
+verifier's executor (``analysis/_sim.py``) when one is installed
+(``SCHEDULE_SIGNATURES``, ``_set_analysis_executor``); the chain guard of
+``explicit_token_ordering`` is live only under the verifier's hooks.
+
 **tracing.**  Each staged op runs inside ``utils/tracing.CallTrace``, as
 the JAX package's 13 host sites do (``:931-1160`` there): the debug lines
 of ``MPI4JAX_TPU_DEBUG`` and, when the recorder is armed, one ops-layer
@@ -39,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 
 import torch
 
@@ -49,7 +55,76 @@ from ..utils.algos import ALGO_CODES
 from ..utils.status import ANY_TAG
 from .reduce_ops import OP_CODES, ReduceOp
 
+# ---------------- static-analysis hooks (analysis/) ----------------
+#
+# Each staged op exports its *schedule signature* (how to read one
+# communication event off its arguments) and, first thing, offers itself
+# to an installed analysis executor: the virtual world of
+# ``analysis/_sim.py``, which owns the ops whose comm is an
+# ``AbstractComm`` and serves them in memory, before any staging,
+# ``coll_algo`` probe or native call.  With none installed the offer is one
+# predicate.  As ``mpi4jax_tpu/ops/_world_impl.py:55-121``.
+
+#: staged op name -> event field -> the op's argument that carries it
+#: (the JAX package's primitive param names; the values are comm-local
+#: ranks, tags and the reduce op's name)
+SCHEDULE_SIGNATURES = {
+    "allreduce": {"kind": "allreduce", "reduce_op": "op"},
+    "reduce": {"kind": "reduce", "reduce_op": "op", "root": "root"},
+    "scan": {"kind": "scan", "reduce_op": "op"},
+    "bcast": {"kind": "bcast", "root": "root"},
+    "allgather": {"kind": "allgather"},
+    "gather": {"kind": "gather", "root": "root"},
+    "scatter": {"kind": "scatter", "root": "root"},
+    "alltoall": {"kind": "alltoall"},
+    "barrier": {"kind": "barrier"},
+    "send": {"kind": "send", "dest": "dest", "tag": "tag"},
+    "recv": {"kind": "recv", "source": "source", "tag": "tag"},
+    "sendrecv": {"kind": "sendrecv", "source": "source", "dest": "dest",
+                 "sendtag": "sendtag", "recvtag": "recvtag"},
+    "shift2": {"kind": "shift2", "lo": "lo", "hi": "hi", "tag": "tag"},
+}
+
+
+def schedule_signature(name: str):
+    """``(name, signature)`` for a staged world op's name, or None.  The
+    port has no token-variant ops: a token never reaches the staged ops."""
+    sig = SCHEDULE_SIGNATURES.get(name)
+    return None if sig is None else (name, sig)
+
+
+_analysis_executor = None
+
+
+def _set_analysis_executor(executor):
+    """Install (or with None remove) the virtual-world executor that
+    serves the staged ops during program analysis."""
+    global _analysis_executor
+    _analysis_executor = executor
+
+
+# During analysis the chain guard below is handed a per-rank pseudo-trace
+# to key its state on, and a hook that turns its warnings into findings.
+# Both are None outside analysis, where the guard tracks nothing.
+_analysis_token_trace = None   # fn(tok=None, comm=None) -> pseudo-trace
+_analysis_warn_hook = None     # fn(comm, n_heads, how) -> None
+
+
+def _set_analysis_token_hooks(token_trace, warn_hook):
+    global _analysis_token_trace, _analysis_warn_hook
+    _analysis_token_trace = token_trace
+    _analysis_warn_hook = warn_hook
+
+
 # ---------------- ordering mode ----------------
+
+
+class _ExplicitMode(threading.local):
+    def __init__(self):
+        self.depth = 0
+
+
+_explicit = _ExplicitMode()
 
 
 @contextlib.contextmanager
@@ -62,13 +137,148 @@ def explicit_token_ordering():
     world ops, and a trace-time guard watches for a world op binding a
     fresh token while another chain on the same comm is live
     (``MPI4JAX_TPU_STRICT_TOKENS``: unset warns, 1 raises, 0 is silent).
-    That guard tracks only tracers: a concrete (eager) token runs in
-    Python order, where nothing can reorder, so eager chains are never
-    flagged.  The port is eager throughout, so the context does nothing:
-    no op reads the mode, nothing is flagged, as in the JAX package's
-    eager runs, and ``MPI4JAX_TPU_STRICT_TOKENS`` is not read.
+    That guard tracks tracers, and a concrete (eager) token runs in Python
+    order, where nothing can reorder.  The port is eager throughout, so in
+    a run the context changes no op and flags nothing.  Under the static
+    verifier (``analysis``) the guard is live, as in the JAX package's
+    virtual world: each rank's chains are tracked, and a fresh token bound
+    amid a live chain, or a tokenless op amid one, is a
+    ``token_violation`` finding.  The mode is per thread, as a JAX config
+    context is.
     """
-    yield
+    _explicit.depth += 1
+    _chain_guard.enter()
+    try:
+        yield
+    finally:
+        _explicit.depth -= 1
+        _chain_guard.exit()
+
+
+class _TokenChainGuard:
+    """Detector for unthreaded and forked token chains, live only under
+    the analysis hooks (``mpi4jax_tpu/ops/_world_impl.py:188-345``).
+
+    Live chain heads (tokens returned by world ops, not yet consumed) are
+    tracked per ``(comm, pseudo-trace)`` while ``explicit_token_ordering``
+    is active; the pseudo-trace is the analyzed rank's.
+    A bare ``create_token()`` registers a *fresh* token (one tied to a
+    value, ``create_token(x)``, legitimately roots a new chain).  Binding a
+    known-fresh token while the same comm has a live head, or a world op
+    with no token while one is live, is the footgun.  Tokens never seen
+    are not flagged.
+    """
+
+    def __init__(self):
+        self._depth = 0
+        # (id(comm), id(trace)) -> [trace, set of id(token)]; the trace
+        # keeps the tokens alive, so their ids cannot alias
+        self._heads = {}
+        self._fresh = {}    # id(trace) -> [trace, set of id(tok)]
+        self._lock = threading.Lock()
+
+    def enter(self):
+        with self._lock:
+            self._depth += 1
+
+    def exit(self):
+        with self._lock:
+            self._depth -= 1
+            if self._depth <= 0:
+                self._depth = 0
+                self._heads.clear()
+                self._fresh.clear()
+
+    @property
+    def active(self):
+        return self._depth > 0
+
+    @staticmethod
+    def _trace_of(tok, comm=None):
+        if _analysis_token_trace is None:
+            return None
+        return _analysis_token_trace(tok, comm)
+
+    def note_fresh(self, tok):
+        trace = self._trace_of(tok) if self.active else None
+        if trace is None:
+            return
+        ent = self._fresh.setdefault(id(trace), [trace, set()])
+        ent[1].add(id(tok))
+
+    def _is_fresh(self, trace, tok):
+        ent = self._fresh.get(id(trace))
+        return ent is not None and id(tok) in ent[1]
+
+    def note_op(self, comm, tok_in, tok_out):
+        if not self.active:
+            return
+        trace = self._trace_of(tok_in, comm)
+        if trace is None:
+            return
+        trace.refs.append(tok_out)
+        key = (id(comm), id(trace))
+        ent = self._heads.setdefault(key, [trace, set()])
+        heads = ent[1]
+        if id(tok_in) in heads:
+            heads.discard(id(tok_in))       # chain continues
+        elif heads and self._is_fresh(trace, tok_in):
+            self._warn(comm, len(heads), "binding a fresh (unrooted) token")
+        heads.add(id(tok_out))
+
+    def note_unthreaded(self, comm):
+        """A world op with no token inside explicit mode: undefined order
+        against any live chain on the same comm."""
+        if not self.active:
+            return
+        trace = self._trace_of(None, comm)
+        if trace is None:
+            return
+        ent = self._heads.get((id(comm), id(trace)))
+        if ent and ent[1]:
+            self._warn(comm, len(ent[1]), "traced with no token")
+
+    def _warn(self, comm, n_heads, how):
+        import warnings
+
+        from ..utils import config as _config
+
+        if _analysis_warn_hook is not None:
+            _analysis_warn_hook(comm, n_heads, how)
+        msg = (
+            f"explicit_token_ordering: a world op on comm {comm!r} is "
+            f"{how} while {n_heads} other "
+            "token chain(s) on the same comm are live in this trace — "
+            "the ops' relative order is UNDEFINED and can deadlock at "
+            "run time.  Thread the previous op's token (or root a new "
+            "chain with create_token(x) tied to a value that depends on "
+            "it).  Set MPI4JAX_TPU_STRICT_TOKENS=1 to make this an "
+            "error, or =0 to silence it."
+        )
+        strict = _config.flag("MPI4JAX_TPU_STRICT_TOKENS", None)
+        if strict:
+            raise RuntimeError(msg)
+        if strict is None:
+            warnings.warn(msg, stacklevel=4)
+
+
+_chain_guard = _TokenChainGuard()
+
+
+def chain_token(comm, token):
+    """The token a world front hands back, after the chain guard has seen
+    the op.  Outside analysis (or outside explicit mode) the caller's
+    token itself, as before; under the analysis hooks a new head (a
+    token op returns a new token in the JAX package, and the guard tells
+    chains apart by identity)."""
+    if _analysis_token_trace is None or not _explicit.depth:
+        return token
+    if token is None:
+        _chain_guard.note_unthreaded(comm)
+        return None
+    out = torch.zeros_like(token)
+    _chain_guard.note_op(comm, token, out)
+    return out
 
 
 # ---------------- staging ----------------
@@ -138,6 +348,9 @@ def _algo_detail(comm, opname, nbytes, algo):
 
 
 def _allreduce(x, comm, op_code: int, algo=None):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("allreduce", x, comm, op=_OP_NAMES[op_code])
     nb = _nbytes(x)
     with tracing.CallTrace(
             comm.rank(), "Allreduce",
@@ -152,6 +365,9 @@ def _allreduce(x, comm, op_code: int, algo=None):
 
 
 def _allgather(x, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("allgather", x, comm)
     nb = _nbytes(x)
     with tracing.CallTrace(
             comm.rank(), "Allgather",
@@ -164,6 +380,9 @@ def _allgather(x, comm):
 
 
 def _gather(x, root, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("gather", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Gather", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
         send = _to_host(x)
@@ -179,6 +398,10 @@ def _gather(x, root, comm):
 
 
 def _reduce(x, op_code, root, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("reduce", x, comm, op=_OP_NAMES[op_code],
+                         root=root)
     with tracing.CallTrace(comm.rank(), "Reduce",
                            f"op {_OP_NAMES[op_code]} root {root}", peer=root,
                            nbytes=_nbytes(x)):
@@ -192,6 +415,9 @@ def _reduce(x, op_code, root, comm):
 
 
 def _scan(x, op_code, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("scan", x, comm, op=_OP_NAMES[op_code])
     with tracing.CallTrace(comm.rank(), "Scan", f"op {_OP_NAMES[op_code]}",
                            nbytes=_nbytes(x)):
         send = _to_host(x)
@@ -202,6 +428,9 @@ def _scan(x, op_code, comm):
 
 
 def _bcast(x, root, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("bcast", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Bcast", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
         send = _to_host(x)
@@ -211,6 +440,9 @@ def _bcast(x, root, comm):
 
 
 def _scatter(x, root, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("scatter", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Scatter", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
         send = _to_host(x)
@@ -220,6 +452,9 @@ def _scatter(x, root, comm):
 
 
 def _alltoall(x, comm, algo=None):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("alltoall", x, comm)
     with tracing.CallTrace(comm.rank(), "Alltoall",
                            f"algo {algo} (forced)" if algo is not None
                            else "", nbytes=_nbytes(x)):
@@ -231,6 +466,9 @@ def _alltoall(x, comm, algo=None):
 
 
 def _shift2(stack, lo, hi, tag, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("shift2", stack, comm, lo=lo, hi=hi, tag=tag)
     with tracing.CallTrace(comm.rank(), "Shift2", f"lo {lo} hi {hi}",
                            peer=hi, nbytes=_nbytes(stack), tag=tag):
         send = _to_host(stack)
@@ -240,6 +478,10 @@ def _shift2(stack, lo, hi, tag, comm):
 
 
 def _recv(x, source, tag, comm, status):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("recv", x, comm, source=source, tag=tag,
+                         status=status)
     with tracing.CallTrace(comm.rank(), "Recv", f"from {source} tag {tag}",
                            peer=source, nbytes=_nbytes(x), tag=tag):
         out = _host_empty(x.shape, x.dtype, comm)
@@ -254,6 +496,10 @@ def _recv(x, source, tag, comm, status):
 
 
 def _sendrecv(x, source, dest, sendtag, recvtag, status, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("sendrecv", x, comm, source=source, dest=dest,
+                         sendtag=sendtag, recvtag=recvtag, status=status)
     with tracing.CallTrace(comm.rank(), "Sendrecv",
                            f"to {dest} from {source}", peer=dest,
                            nbytes=2 * _nbytes(x), tag=sendtag):
@@ -410,11 +656,17 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm, tag=60):
 
 
 def barrier(comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("barrier", None, comm)
     with tracing.CallTrace(comm.rank(), "Barrier", ""):
         bridge.barrier(comm.handle)
 
 
 def send(x, dest, tag, comm):
+    ex = _analysis_executor
+    if ex is not None and ex.owns(comm):
+        return ex.run_op("send", x, comm, dest=dest, tag=tag)
     with tracing.CallTrace(comm.rank(), "Send", f"to {dest} tag {tag}",
                            peer=dest, nbytes=_nbytes(x), tag=tag):
         bridge.send(comm.handle, _np(_to_host(x)), dest, tag)

@@ -23,7 +23,8 @@ def allgather(x, *, comm=None, token=None):
 
         _validation.check_world_tensor("allgather", x, comm)
         _validation.check_wire_dtype("allgather", x, comm)
-        return _dispatch.attach(_world_impl.allgather(x, comm), token)
+        return _dispatch.attach_world(_world_impl.allgather(x, comm),
+                                      token, comm)
     _validation.check_tensor("allgather", x, comm)
     _tracing.trace_mesh_op(comm, "Allgather")
     return _dispatch.attach(_mesh_impl.allgather(x, comm), token)

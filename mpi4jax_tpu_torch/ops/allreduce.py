@@ -51,8 +51,8 @@ def allreduce(x, op=SUM, *, comm=None, token=None, compression=None,
     comm = _validation.resolve_comm(comm)
     _dispatch.check_token(token)
     if _validation.is_world(comm):
-        return _dispatch.attach(
-            _world_allreduce(x, op, comm, compression, algo), token)
+        return _dispatch.attach_world(
+            _world_allreduce(x, op, comm, compression, algo), token, comm)
     _validation.check_tensor("allreduce", x, comm)
     if algo is not None:
         _algos.check_algo(algo, "allreduce")

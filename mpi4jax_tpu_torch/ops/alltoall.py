@@ -87,4 +87,5 @@ def alltoall(x, *, comm=None, token=None, compression=None, algo=None):
             f"alltoall requires leading axis == communicator size "
             f"({comm.size()})", op="alltoall", comm=comm, x=x,
             exc=ValueError)
-    return _dispatch.attach(_world_impl.alltoall(x, comm, algo=algo), token)
+    return _dispatch.attach_world(
+        _world_impl.alltoall(x, comm, algo=algo), token, comm)

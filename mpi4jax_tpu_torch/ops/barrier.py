@@ -23,7 +23,7 @@ def barrier(*, comm=None, token=None):
         from . import _world_impl
 
         _world_impl.barrier(comm)
-    else:
-        _tracing.trace_mesh_op(comm, "Barrier")
-        _mesh_impl.barrier(comm)
+        return _world_impl.chain_token(comm, token)
+    _tracing.trace_mesh_op(comm, "Barrier")
+    _mesh_impl.barrier(comm)
     return token

@@ -25,7 +25,8 @@ def bcast(x, root=0, *, comm=None, token=None):
         _validation.check_world_tensor("bcast", x, comm)
         root = _validation.check_root("bcast", root, comm)
         _validation.check_wire_dtype("bcast", x, comm)
-        return _dispatch.attach(_world_impl.bcast(x, root, comm), token)
+        return _dispatch.attach_world(_world_impl.bcast(x, root, comm),
+                                      token, comm)
     _validation.check_tensor("bcast", x, comm)
     root = _validation.check_root("bcast", root, comm)
     _tracing.trace_mesh_op(comm, "Bcast", f"root {root}")

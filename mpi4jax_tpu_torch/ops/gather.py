@@ -26,7 +26,8 @@ def gather(x, root=0, *, comm=None, token=None):
         _validation.check_world_tensor("gather", x, comm)
         root = _validation.check_root("gather", root, comm)
         _validation.check_wire_dtype("gather", x, comm)
-        return _dispatch.attach(_world_impl.gather(x, root, comm), token)
+        return _dispatch.attach_world(_world_impl.gather(x, root, comm),
+                                      token, comm)
     _validation.check_tensor("gather", x, comm)
     root = _validation.check_root("gather", root, comm)
     _tracing.trace_mesh_op(comm, "Gather", f"root {root}")

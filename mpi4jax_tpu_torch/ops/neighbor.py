@@ -56,4 +56,4 @@ def neighbor_exchange(to_lo, to_hi, *, lo, hi, comm=None, tag=60,
     _validation.check_wire_dtype("neighbor_exchange", to_lo, comm)
     out = _world_impl.neighbor_exchange(to_lo, to_hi, lo=lo, hi=hi,
                                         comm=comm, tag=tag)
-    return _dispatch.attach(out, token)
+    return _dispatch.attach_world(out, token, comm)

@@ -46,5 +46,5 @@ def recv(x, source, tag=None, *, comm=None, token=None, status=None):
         _validation.check_in_range("source", source, comm.size(), op="recv",
                                    comm=comm)
     _validation.check_wire_dtype("recv", x, comm)
-    return _dispatch.attach(_world_impl.recv(x, source, tag, comm, status),
-                            token)
+    return _dispatch.attach_world(
+        _world_impl.recv(x, source, tag, comm, status), token, comm)

@@ -28,7 +28,8 @@ def reduce(x, op=SUM, root=0, *, comm=None, token=None):
         root = _validation.check_root("reduce", root, comm)
         _validation.check_reduce_dtype("reduce", op, x, comm)
         _validation.check_wire_dtype("reduce", x, comm)
-        return _dispatch.attach(_world_impl.reduce(x, op, root, comm), token)
+        return _dispatch.attach_world(
+            _world_impl.reduce(x, op, root, comm), token, comm)
     _validation.check_tensor("reduce", x, comm)
     root = _validation.check_root("reduce", root, comm)
     _validation.check_reduce_dtype("reduce", op, x, comm)

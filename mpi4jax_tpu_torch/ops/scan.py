@@ -25,7 +25,8 @@ def scan(x, op=SUM, *, comm=None, token=None):
         _validation.check_world_tensor("scan", x, comm)
         _validation.check_reduce_dtype("scan", op, x, comm)
         _validation.check_wire_dtype("scan", x, comm)
-        return _dispatch.attach(_world_impl.scan(x, op, comm), token)
+        return _dispatch.attach_world(_world_impl.scan(x, op, comm),
+                                      token, comm)
     _validation.check_tensor("scan", x, comm)
     _validation.check_reduce_dtype("scan", op, x, comm)
     _tracing.trace_mesh_op(comm, "Scan", f"op {op.name}")

@@ -29,7 +29,8 @@ def scatter(x, root=0, *, comm=None, token=None):
                 f"scatter requires input shape (size, ...) = "
                 f"({comm.size()}, ...)", op="scatter", comm=comm, x=x,
                 exc=ValueError)
-        return _dispatch.attach(_world_impl.scatter(x, root, comm), token)
+        return _dispatch.attach_world(_world_impl.scatter(x, root, comm),
+                                      token, comm)
     _validation.check_tensor("scatter", x, comm)
     root = _validation.check_root("scatter", root, comm)
     _tracing.trace_mesh_op(comm, "Scatter", f"root {root}")

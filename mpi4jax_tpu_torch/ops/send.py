@@ -42,4 +42,4 @@ def send(x, dest, tag=0, *, comm=None, token=None):
                                comm=comm)
     _validation.check_wire_dtype("send", x, comm)
     _world_impl.send(x, dest, tag, comm)
-    return token
+    return _world_impl.chain_token(comm, token)

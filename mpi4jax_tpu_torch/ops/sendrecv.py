@@ -61,9 +61,9 @@ def sendrecv(x, *, perm=None, shift=None, wrap=True, source=None, dest=None,
     if recvtag is not None:
         recvtag = _validation.check_static_int("recvtag", recvtag)
     if _validation.is_world(comm):
-        return _dispatch.attach(
+        return _dispatch.attach_world(
             _world_sendrecv(x, comm, perm, shift, wrap, source, dest,
-                            sendtag, recvtag, status), token)
+                            sendtag, recvtag, status), token, comm)
     if source is not None or dest is not None:
         raise ValueError(
             "mesh-tier sendrecv takes the global pattern (perm=[(src, dst), "

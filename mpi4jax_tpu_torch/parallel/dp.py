@@ -21,6 +21,7 @@ import torch
 from ..ops import SUM, allreduce
 from ..utils import config
 from ..utils import tree as _tree
+from ..utils.validation import is_world
 
 
 def _resolve(comm):
@@ -52,7 +53,9 @@ def _resolve_bucket_bytes(bucket_bytes):
 def sync_gradients(grads, *, comm=None, bucket_bytes=None):
     """Allreduce-mean every leaf of a gradient tree.
 
-    By default one allreduce per leaf.  With ``bucket_bytes`` > 0, or
+    On a mesh comm the leaves have the mesh's rank dimensions leading; on
+    a world comm each is this rank's tensor.  By default one allreduce per
+    leaf.  With ``bucket_bytes`` > 0, or
     whenever ``MPI4JAX_TPU_PLAN_BUCKET_KB`` is set in the environment,
     adjacent leaves of one dtype (in ``jax.tree.flatten``'s order: dict keys
     sorted, ``None`` dropped) are joined into buckets of up to that many
@@ -71,8 +74,9 @@ def sync_gradients(grads, *, comm=None, bucket_bytes=None):
     if bucket_bytes <= 0:
         return _tree.tree_map(lambda g: pmean(g, comm=comm), grads)
     comm = _resolve(comm)
-    lead = comm.layout_shape
-    nranks = comm.nranks
+    # a world comm's tensors are this rank's alone: no rank dimensions
+    lead = () if is_world(comm) else comm.layout_shape
+    nranks = 1 if is_world(comm) else comm.nranks
     leaves, treedef = _tree.flatten(grads)
 
     synced = [None] * len(leaves)

@@ -2,7 +2,7 @@
 
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
         [--hosts H0,H1,...] [--port P] [--timeout S] [--trace out.json] \\
-        prog.py [args...]
+        [--verify] prog.py [args...]
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 -m package.module [-- args...]
 
 The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
@@ -25,6 +25,14 @@ share this host; on a machine with one card they all use it.
   exit; after the job the launcher merges the parts into one
   Perfetto-loadable Chrome trace at ``OUT.json`` (stale parts at that path
   are removed first), as ``mpi4jax_tpu/runtime/launch.py:351-390`` there.
+- ``--verify``: before any rank is spawned, the static communication
+  verifier (``python -m mpi4jax_tpu_torch.analyze ... --errors-only``) runs
+  the program in its virtual world, in a subprocess, with the environment
+  the ranks will get (``--fake-hosts``, ``--hosts``, the tune cache).
+  Warnings are printed and the launch goes on; error findings are printed
+  and the launcher exits 3 with no rank spawned; an analyzer failure exits
+  with the analyzer's code.  As ``mpi4jax_tpu/runtime/launch.py:143-185``
+  there, with ``-m`` too.
 """
 
 from __future__ import annotations
@@ -90,6 +98,59 @@ def rank_env(rank: int, size: int, base_port: int, jobid: str,
     if trace:
         env["MPI4JAX_TPU_TRACE"] = trace
     return env
+
+
+def _preflight_verify(prog: str, np_: int, prog_args=(), module=False,
+                      fake_hosts=None, hosts=None) -> int:
+    """Run the static communication verifier on ``prog`` before spawning
+    any rank.  Returns 0 to proceed; 3 (with the findings table on
+    stderr) when verification fails; the analyzer's own code on analyzer
+    errors.
+
+    A subprocess on purpose: a verifier crash must not take the launcher
+    down with it, and the analyzed program's process state stays out of
+    the launcher.  Its environment is the ranks' without the per-rank
+    variables: the virtual world gives each rank its comm, and records
+    nothing (no ``MPI4JAX_TPU_TRACE``).
+    """
+    env = dict(os.environ)
+    if fake_hosts:
+        env["MPI4JAX_TPU_FAKE_HOSTS"] = fake_hosts
+    if hosts:
+        env["MPI4JAX_TPU_HOSTS"] = hosts
+    repo = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env.setdefault("PYTHONPATH", repo)
+    # warnings document assumptions and do not block a launch; the "--"
+    # keeps the program's own flags out of the analyzer's parser
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi4jax_tpu_torch.analyze",
+         *(["-m"] if module else []), prog, "--np", str(np_),
+         "--errors-only", "--", *prog_args],
+        capture_output=True, text=True, env=env,
+    )
+    if res.returncode == 0:
+        if "WARNING" in res.stdout:
+            print(f"[launch] --verify: {prog} has warnings at np={np_} "
+                  "(launch proceeds):", file=sys.stderr)
+            sys.stderr.write(res.stdout)
+        else:
+            print(f"[launch] --verify: {prog} clean at np={np_}",
+                  file=sys.stderr)
+        sys.stderr.flush()
+        return 0
+    if res.returncode == 3:
+        print(f"[launch] --verify FAILED for {prog} at np={np_} — "
+              "no rank was spawned:", file=sys.stderr)
+        sys.stderr.write(res.stdout)
+        sys.stderr.write(res.stderr)
+        sys.stderr.flush()
+        return 3
+    print(f"[launch] --verify could not run the analyzer "
+          f"(exit {res.returncode}):", file=sys.stderr)
+    sys.stderr.write(res.stderr[-2000:])
+    sys.stderr.flush()
+    return res.returncode or 2
 
 
 def _remove_stale_parts(trace: str) -> None:
@@ -164,6 +225,12 @@ def main(argv=None) -> int:
                          "Perfetto-loadable Chrome trace at OUT.json after "
                          "the job; the ranks' parts stay beside it as "
                          "OUT.json.rank<r>.json")
+    ap.add_argument("--verify", action="store_true",
+                    help="pre-flight: statically verify the program's "
+                         "communication schedule (python -m "
+                         "mpi4jax_tpu_torch.analyze) and exit 3 with the "
+                         "findings table when it fails — BEFORE any rank "
+                         "is spawned")
     ap.add_argument("-m", dest="module", action="store_true",
                     help="PROG is a module, run as each rank's program "
                          "(python -m)")
@@ -179,6 +246,11 @@ def main(argv=None) -> int:
             ap.error(f"--hosts lists {nhosts} entries for {args.np} ranks")
     prog_args = args.args[1:] if args.args[:1] == ["--"] else args.args
     command = ["-m"] * args.module + [args.prog, *prog_args]
+    if args.verify:
+        rc = _preflight_verify(args.prog, args.np, prog_args, args.module,
+                               args.fake_hosts, args.hosts)
+        if rc != 0:
+            return rc
 
     trace = os.path.abspath(args.trace) if args.trace else None
     if trace:

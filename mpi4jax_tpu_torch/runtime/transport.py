@@ -21,6 +21,7 @@ native transport.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 from ..parallel.mesh import CommBase
@@ -52,9 +53,22 @@ def _detect_rank_size():
     return None
 
 
+class _VirtualRank(threading.local):
+    """The static verifier's rank threads (``analysis/_sim.py``) each set
+    their ``AbstractComm`` here: ``get_world_comm`` hands it out, as the
+    launcher's environment gives a real rank its comm."""
+
+    def __init__(self):
+        self.comm = None
+
+
+_virtual = _VirtualRank()
+
+
 def in_world() -> bool:
-    """True when this process was launched as a rank of a world job."""
-    return _detect_rank_size() is not None
+    """True when this process was launched as a rank of a world job (or
+    this thread is a rank of the static verifier's virtual world)."""
+    return _virtual.comm is not None or _detect_rank_size() is not None
 
 
 _world: Optional["WorldComm"] = None
@@ -63,8 +77,11 @@ _world: Optional["WorldComm"] = None
 def get_world_comm(device=None) -> "WorldComm":
     """This process's world communicator, made on the first call on
     ``device`` (default ``cuda:0``); a later call that names another
-    device raises."""
+    device raises.  In a rank thread of the static verifier, that rank's
+    ``AbstractComm``."""
     global _world
+    if _virtual.comm is not None:
+        return _virtual.comm.bind_device(device)
     if _world is None:
         rs = _detect_rank_size()
         if rs is None:
@@ -190,6 +207,15 @@ class WorldComm(CommBase):
         return WorldComm(bridge.comm_rank(handle), bridge.comm_size(handle),
                          self._coord, device=self.device, handle=handle,
                          parent=self)
+
+    def finalize(self) -> None:
+        """Close this comm's native communicator, if it was ever
+        connected (collective: every member calls it at the same point)."""
+        if self._handle is not None:
+            from . import bridge
+
+            bridge.comm_finalize(self._handle)
+            self._handle = None
 
     def topology(self):
         """The discovered :class:`~mpi4jax_tpu_torch.topo.Topology` of

@@ -779,7 +779,8 @@ def cache_from_joint(world_size: int, best: Dict[str, Dict[int, str]],
                       model_path=model_file)
 
 
-def install(world_size: Optional[int] = None, topology=None) -> bool:
+def install(world_size: Optional[int] = None, topology=None,
+            native: bool = True) -> bool:
     """Load the persistent cache (if present) and push the merged
     decision table into the native layer.  Called by
     ``runtime.bridge.comm_init`` at communicator creation; safe to call
@@ -790,7 +791,12 @@ def install(world_size: Optional[int] = None, topology=None) -> bool:
     things: a multi-island map flips the default layer to the
     hierarchical table, and its fingerprint keys the cache lookup —
     ``tune_<size>_<topohash>.json`` first, the legacy un-keyed
-    ``tune_<size>.json`` as a fallback."""
+    ``tune_<size>.json`` as a fallback.
+
+    ``native=False`` loads the layers in Python only and pushes nothing:
+    the static verifier's virtual world (``analysis/_sim.py``) gives an
+    analyzed program the tables its ranks would read, without the
+    transport."""
     global _topo_multi, _cache_table, _cache_origin, _cache_combos, \
         _cache_loaded_for
     topo_fp = None
@@ -832,7 +838,7 @@ def install(world_size: Optional[int] = None, topology=None) -> bool:
     # a conflicting env knob silently shadowing a measured cache pick is
     # the one precedence interaction operators cannot see — say so once
     _notice_shadowed()
-    return _push_native()
+    return _push_native() if native else False
 
 
 def _reinstall() -> None:

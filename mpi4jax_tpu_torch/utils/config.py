@@ -30,7 +30,13 @@ typo silently changes routing or numerics.
 - ``MPI4JAX_TPU_CKPT_DIR``: the default directory of the sharded
   checkpoints (``utils/checkpoint.py``);
 - ``MPI4JAX_TPU_TUNE_MODEL``: the full path of the joint tuner's cost-model
-  file (``tune._model.model_path``).
+  file (``tune._model.model_path``);
+- ``MPI4JAX_TPU_ANALYZE_TIMEOUT_S``: the static verifier's wall deadline
+  for one virtual-world run (``analysis/_sim.py``), seconds, default 120,
+  0 for none;
+- ``MPI4JAX_TPU_ANALYZE_SYMBOLIC``: auto | off, the verifier's
+  rank-symbolic path (``analysis/_symbolic.py`` reads it itself, with this
+  parser's rules).
 
 ``knob_env`` stamps the resolved gates into tune caches and benchmark
 records, as the JAX package does.  Plan execution (``MPI4JAX_TPU_PLAN``)
@@ -87,7 +93,8 @@ def fake_hosts_spec() -> Optional[str]:
 
 def plan_bucket_bytes() -> int:
     """``MPI4JAX_TPU_PLAN_BUCKET_KB`` in bytes (default 1 MiB; 0 disables
-    gradient bucketing; a negative value counts as 0)."""
+    gradient bucketing; a negative value counts as 0), the value that
+    ``analysis._plan.default_bucket_bytes`` reads for a set knob."""
     raw = os.environ.get("MPI4JAX_TPU_PLAN_BUCKET_KB")
     if raw is None or not raw.strip():
         return 1 << 20
@@ -97,6 +104,40 @@ def plan_bucket_bytes() -> int:
         raise ValueError(
             f"cannot parse MPI4JAX_TPU_PLAN_BUCKET_KB={raw!r} as KB")
     return max(0, v) * 1024
+
+
+def _float_knob(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(f"cannot parse {name}={raw!r} as seconds")
+    # an explicit non-positive value means OFF, not "use the default"
+    return v if v > 0 else 0.0
+
+
+def analyze_timeout_s() -> float:
+    """``MPI4JAX_TPU_ANALYZE_TIMEOUT_S`` in seconds (default 120; 0 = no
+    deadline, as ``MPI4JAX_TPU_TIMEOUT_S``)."""
+    return _float_knob("MPI4JAX_TPU_ANALYZE_TIMEOUT_S", 120.0)
+
+
+def analyze_symbolic_mode() -> str:
+    """``MPI4JAX_TPU_ANALYZE_SYMBOLIC`` as "auto" | "off", strict: a typo
+    raises rather than changing which path gave a verdict.  The same
+    parse as ``analysis._symbolic.symbolic_mode``, which reads the
+    environment itself to stay loadable alone."""
+    raw = os.environ.get("MPI4JAX_TPU_ANALYZE_SYMBOLIC")
+    if raw is None or not raw.strip():
+        return "auto"
+    v = raw.strip()
+    if v in ("auto", "off"):
+        return v
+    raise ValueError(
+        f"cannot parse MPI4JAX_TPU_ANALYZE_SYMBOLIC={raw!r} "
+        "(expected auto or off)")
 
 
 _TRUTHY = frozenset(("1", "true", "on", "yes", "y"))

@@ -12,13 +12,16 @@ equal ``fused_ring_allreduce_plain``, the step-by-step replay of the TPU
 kernel's schedule, bit for bit at every n, count and dtype here, and in f32
 the JAX package's ``topo.simulate_ring_sum`` too.  No JAX function is
 compiled: the simulator is numpy.
+
+The dtypes are split over three files of at most 45 cases: f32 and f16
+here, bf16 and int32 in ``tests/test_torch_ring_onepass_bf16.py``, u64
+and the simulator in ``tests/test_torch_ring_onepass_sim.py``; those
+import the model and the inputs from here.
 """
 
 import numpy as np
 import pytest
 import torch
-
-from mpi4jax_tpu.topo._simulate import simulate_ring_sum
 
 from mpi4jax_tpu_torch.ops import _collectives as coll
 
@@ -78,18 +81,13 @@ def _same_bits(a, b):
                                               b.view(torch.uint8))
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("count", COUNTS)
-@pytest.mark.parametrize("n", NS)
-def test_one_pass_is_the_plain_ring(n, count, dtype):
+def check_plain_ring(n, count, dtype):
     rows = _rows(n, count, dtype)
     assert _same_bits(_one_pass(rows), coll.fused_ring_allreduce_plain(rows))
 
 
+@pytest.mark.parametrize("dtype", DTYPES[:2], ids=str)
 @pytest.mark.parametrize("count", COUNTS)
 @pytest.mark.parametrize("n", NS)
-def test_one_pass_is_simulate_ring_sum(n, count):
-    rows = _rows(n, count, torch.float32)
-    want = torch.from_numpy(simulate_ring_sum(list(rows.numpy())))
-    got = _one_pass(rows)
-    assert _same_bits(got, want.expand(n, count))
+def test_one_pass_is_the_plain_ring(n, count, dtype):
+    check_plain_ring(n, count, dtype)

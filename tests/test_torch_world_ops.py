@@ -25,6 +25,12 @@ follow the JAX world tier's rules (``tests/world_programs/autodiff.py``):
 the SUM allreduce passes the cotangent, sendrecv sends it back along the
 edge; every other world op's backward raises, shown here without a
 transport.
+
+The cases are split over three files of at most 45: the 3-rank job's here
+(with the tune tables), the 4-rank job's and the gradient refusals in
+``tests/test_torch_world_ops_islands.py``, the quantized simulators in
+``tests/test_torch_world_ops_quant.py``.  Each job and its JAX compile
+stays with all its cases in one file.
 """
 
 import os
@@ -36,14 +42,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import mpi4jax_tpu as m4j
 from mpi4jax_tpu import tune as jtune
 from mpi4jax_tpu.ops import quantized as jquant
 from mpi4jax_tpu.topo import _simulate as jsim
 
-import mpi4jax_tpu_torch as mt
 from mpi4jax_tpu_torch import tune as ttune
 from mpi4jax_tpu_torch.benchmarks import world_ops as wo
 from mpi4jax_tpu_torch.ops import _world_impl
@@ -52,6 +56,8 @@ from mpi4jax_tpu_torch.topo import _simulate as sim
 
 JOBS = {3: {"env": {"MPI4JAX_TPU_DISABLE_SHM": "1"}},
         4: {"fake_hosts": "r0,r1|r2,r3"}}
+#: this file's job (each world size's cases are a file of at most 45)
+WORLD_NS = (3,)
 _JAX_ABSMAX = m4j.custom_op(
     "ABSMAX_WORLD_PARITY", lambda a, b: jnp.maximum(jnp.abs(a), jnp.abs(b)))
 
@@ -102,10 +108,10 @@ def _jax_reference(n):
                               else v) for k, v in res.items()}
 
 
-@pytest.fixture(scope="module")
-def world():
-    """Both jobs, launched side by side while the JAX references compile:
-    ``{n: (record, per-rank results, JAX results)}``."""
+def launch_world(ns):
+    """The jobs of the world sizes ``ns``, launched side by side while
+    their JAX references compile: yields ``{n: (record, per-rank results,
+    JAX results)}`` (the body of each file's module fixture)."""
     if shutil.which(os.environ.get("CXX", "g++")) is None:
         pytest.skip("g++ is not on PATH: the native transport cannot be "
                     "built here")
@@ -121,20 +127,27 @@ def world():
         except Exception as e:  # reported below, in the test's thread
             errors[n] = e
 
-    threads = [threading.Thread(target=job, args=(n,)) for n in JOBS]
+    threads = [threading.Thread(target=job, args=(n,)) for n in ns]
     for t in threads:
         t.start()
-    refs = {n: _jax_reference(n) for n in JOBS}
+    refs = {n: _jax_reference(n) for n in ns}
     for t in threads:
         t.join()
     if errors:
         raise RuntimeError(f"world_ops jobs failed: {errors}")
     yield {n: (runs[n][0], wo.load_results(runs[n][1], n), refs[n])
-           for n in JOBS}
+           for n in ns}
     shutil.rmtree(tmp, ignore_errors=True)
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.fixture(scope="module")
+def world():
+    """The 3-rank job and its JAX references (the 4-rank one is
+    ``tests/test_torch_world_ops_islands.py``'s)."""
+    yield from launch_world(WORLD_NS)
+
+
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_every_rank_held_every_oracle(world, n):
     rec, results, _ = world[n]
     assert rec["size"] == n and rec["device"] == "cpu"
@@ -160,7 +173,7 @@ def _held(got, want, key, dt, src):
         np.testing.assert_array_equal(got, want, err_msg=key)
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 @pytest.mark.parametrize("dt", wo.DTYPES)
 def test_reductions_match_jax(world, n, dt):
     _, results, ref = world[n]
@@ -172,7 +185,7 @@ def test_reductions_match_jax(world, n, dt):
             _held(results[r][key], ref[key][r], key, dt, src)
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 @pytest.mark.parametrize("dt", wo.OTHER_DTYPES)
 def test_other_wire_dtypes_reduce(world, n, dt):
     """The rest of the 15 wire dtypes, held to numpy (their JAX mesh
@@ -189,7 +202,7 @@ def test_other_wire_dtypes_reduce(world, n, dt):
         np.testing.assert_array_equal(results[r][f"allgather/{dt}"], stack)
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 @pytest.mark.parametrize("dt", wo.DTYPES)
 def test_data_movement_matches_jax(world, n, dt):
     _, results, ref = world[n]
@@ -210,7 +223,7 @@ def test_data_movement_matches_jax(world, n, dt):
         np.testing.assert_array_equal(results[r][key], stack[r])
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_custom_op_matches_jax(world, n):
     _, results, ref = world[n]
     for key in ("custom/allreduce", "custom/scan"):
@@ -218,7 +231,7 @@ def test_custom_op_matches_jax(world, n):
             np.testing.assert_array_equal(results[r][key], ref[key][r])
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_f32_schedules_match_the_jax_simulators(world, n, monkeypatch):
     rec, results, _ = world[n]
     islands = rec["islands"]
@@ -247,7 +260,7 @@ def test_f32_schedules_match_the_jax_simulators(world, n, monkeypatch):
                                           results[r][f"sum/{pick}/{count}"])
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_int8_matches_the_jax_simulators(world, n, monkeypatch):
     rec, results, ref = world[n]
     jax_tune = _jax_default_layer(monkeypatch, rec["multi"])
@@ -305,19 +318,7 @@ def test_port_default_picks_are_jax_s(monkeypatch, multi):
         assert ttune.decision_table() == jax_tune.decision_table()
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
-@pytest.mark.parametrize("count", [1, 7, 513, 70001])
-def test_port_quant_simulators_are_jax_bit_for_bit(n, count):
-    rng = np.random.default_rng([n, count])
-    parts = [(rng.standard_normal(count) * 10 ** rng.uniform(-3, 3))
-             .astype(np.float32) for _ in range(n)]
-    np.testing.assert_array_equal(sim.simulate_qring_sum(parts),
-                                  jquant.simulate_qring_sum(parts))
-    np.testing.assert_array_equal(sim.simulate_qrd_sum(parts),
-                                  jquant.simulate_qrd_sum(parts))
-
-
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_gradients_follow_the_jax_rules(world, n):
     """``tests/world_programs/autodiff.py``: the SUM allreduce's gradient
     is the cotangent; sendrecv's goes back along the edge (shift +1's is
@@ -334,7 +335,7 @@ def test_gradients_follow_the_jax_rules(world, n):
             np.array([float((r - 1) % n + (r + 1) % n)], np.float32))
 
 
-@pytest.mark.parametrize("n", sorted(JOBS))
+@pytest.mark.parametrize("n", WORLD_NS)
 def test_neighbor_exchange_walls_and_self_wrap(world, n):
     """``tests/world_programs/neighbor_ops.py``: from_lo is lo's to_hi and
     from_hi hi's to_lo on the ring."""
@@ -373,47 +374,3 @@ def local_world(monkeypatch):
     for name, fn in _LOCAL.items():
         monkeypatch.setattr(_world_impl, name, fn)
     return _fake_comm()
-
-
-@pytest.mark.parametrize("call", [
-    lambda x, c: mt.allreduce(x, op=mt.MAX, comm=c),
-    lambda x, c: mt.allreduce(x, op=mt.PROD, comm=c),
-    lambda x, c: mt.allgather(x, comm=c),
-    lambda x, c: mt.bcast(x, 1, comm=c),
-    lambda x, c: mt.gather(x, 0, comm=c),
-    lambda x, c: mt.reduce(x, op=mt.SUM, root=0, comm=c),
-    lambda x, c: mt.scan(x, comm=c),
-    lambda x, c: mt.scatter(x.expand(4, 4), 0, comm=c),
-    lambda x, c: mt.alltoall(x.expand(4, 4), comm=c),
-    lambda x, c: mt.neighbor_exchange(x, x * 2, lo=1, hi=3, comm=c)[0],
-], ids=["MAX", "PROD", "allgather", "bcast", "gather", "reduce", "scan",
-        "scatter", "alltoall", "neighbor_exchange"])
-def test_other_world_ops_have_no_gradient(local_world, call):
-    """Their backward raises, as ``jax.grad`` does for want of a rule; the
-    forward stays connected to the graph (nothing is detached)."""
-    x = torch.arange(4, dtype=torch.float32).requires_grad_()
-    y = call(x, local_world)
-    assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        y.sum().backward()
-
-
-def test_sendrecv_gradient_swaps_the_edge_and_tags(local_world,
-                                                   monkeypatch):
-    """The transpose of ``:1576-1595`` there: source and dest swapped, the
-    tags too, and a wildcard receive tag keeps the own send tag."""
-    calls = []
-
-    def record(x, source, dest, sendtag, recvtag, status, comm):
-        calls.append((source, dest, sendtag, recvtag))
-        return x.detach().clone()
-
-    monkeypatch.setattr(_world_impl, "_sendrecv", record)
-    x = torch.ones(3, requires_grad=True)
-    mt.sendrecv(x, source=1, dest=2, sendtag=5, recvtag=6,
-                comm=local_world).sum().backward()
-    mt.sendrecv(x, source=1, dest=2, sendtag=5, recvtag=mt.ANY_TAG,
-                status=mt.Status(), comm=local_world).sum().backward()
-    assert calls == [(1, 2, 5, 6), (2, 1, 6, 5),
-                     (1, 2, 5, mt.ANY_TAG), (2, 1, 5, mt.ANY_TAG)]
-    assert torch.equal(x.grad, torch.full((3,), 2.0))
