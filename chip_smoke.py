@@ -255,15 +255,40 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    trace cannot hold (``unrecorded_ops``), then that rank's top-level ops
    in the merged trace; (n3) the analyzer on path (k)'s program
    (``benchmarks.sw_world --grid 2 2``) at 1800x3600 and ``N_DAYS`` model
-   days must report clean with halo exchanges on every rank; (n4)
+   days (0.05, half of path (k)'s, for the script's time limit) must
+   report clean with halo exchanges on every rank; (n4)
    ``launch -n 2 --verify tests/torch_world_programs/tag_mismatch.py``
-   must exit 3, name the ``tag_mismatch`` finding and start no rank; the
-   seconds and events per rank of each.
+   must exit 3, name the ``tag_mismatch`` finding and start no rank; (n3)
+   and (n4) run beside (n1); the seconds and events per rank of each;
+33. path (o), plan execution (``runtime/planrt.py``): (o1) ``runtime.launch
+   -n 3 -m mpi4jax_tpu_torch.benchmarks.schedule_overlap`` at the JAX
+   benchmark's defaults (15 rounds of 4096 KB f32 blocks on ``cuda:0``
+   down a chain of ranks, a 3 ms idle window, then 64 gradients of 8 KB
+   per leaf and in 512 KB buckets), the plan off and then on, the shm arena
+   off: every received block equal to its numpy oracle, each rank's digest
+   equal on and off, the runner's hoisted receives and deferred sends above
+   0 and no mismatch; us per round on and off, the bucketed and per-leaf
+   seconds; (o2) ``launch -n 3 --plan false_serialization.py``: the
+   launcher's ``--plan: verified plan``, digests equal to a
+   ``MPI4JAX_TPU_PLAN=0`` run's; (o3) ``bucketed_dp_grad.py`` at np 2 under
+   the plan ``analyze --emit-plan`` gives for it: ``bucketed_dp_grad OK`` on
+   both ranks;
+34. path (p), live re-tuning (``live/``): (p1) ``runtime.launch -n 4
+   --fake-hosts 'r0,r1|r2,r3' --live -m
+   mpi4jax_tpu_torch.benchmarks.live_world``: 30 f32 SUM allreduces of
+   16 MiB a rank on ``cuda:0`` under a tune cache pinned to ``ring``; after
+   call 10 rank 0 proposes ``hring``; every rank reports epoch 1 and one
+   swap committed at the same boundary, each call before the commit bit for
+   bit ``simulate_ring_sum`` and each after it bit for bit the leg's
+   ``simulate_hring_sum`` on every rank, kernel 3 launched 0 times before
+   the commit and once per rank per call after it; (p2) the same job
+   without ``--live``: epoch 0, no swap, no boundary hook, every call
+   ``ring``; ms per call before the proposal, in (p2) and after the swap.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-32 on the CPU through the plain versions at a small size and prints
+23-34 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -386,13 +411,22 @@ M_SMALL_COUNTS = (256, 16384)
 # phase 32, path (n): the verifier's deadline, and path (k)'s model days in
 # the virtual world
 N_TIMEOUT_S = 900
-N_DAYS = DAYS
+N_DAYS = DAYS / 2  # (n3)'s depth, cut for the script's time limit
 M_SMALL_GPT = gpt.GPTConfig(vocab=256, d_model=32, n_heads=4, n_layers=2,
                             d_ff=128, max_seq=32, dtype="bfloat16")
+# phase 33, path (o): the chain at the JAX benchmark's defaults on the card
+O_SMALL = ["--device", "cpu", "--rounds", "4", "--block-kb", "512"]
+# phase 34, path (p): path (g)'s 16 MiB a rank on the card
+P_SMALL_MIB = 1
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg=""):
+    if msg.startswith("phase "):  # each phase's start, on the script's clock
+        msg = f"{msg} (t = {time.perf_counter() - _T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -1956,6 +1990,12 @@ def path_k(dev, a, shape, card):
                 job_seconds=secs)
 
 
+def _timed(fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), its wall seconds)``."""
+    t0 = time.perf_counter()
+    return fn(*args, **kwargs), time.perf_counter() - t0
+
+
 def _run(what, cmd, env, timeout):
     """A subprocess from the repo's root; its failure fails the phase with
     the tail of its output."""
@@ -2167,11 +2207,11 @@ def path_n(on_card, card, l_run, shape):
     the ops before the recorder's last restart (``unrecorded_ops``), then
     that rank's top-level ops in phase 30's merged trace.  (n2) is phase
     30's ``--verify``.  (n3) the analyzer on path (k)'s program
-    (``benchmarks.sw_world --grid 2 2``) at ``shape``: clean, with halo
-    exchanges on every rank.  (n4) ``launch -n 2 --verify`` of
-    ``tests/torch_world_programs/tag_mismatch.py``: exit 3, the finding
-    named, no rank started.  Every rank thread's tensors live on the
-    card."""
+    (``benchmarks.sw_world --grid 2 2``) at ``shape`` and ``N_DAYS``:
+    clean, with halo exchanges on every rank.  (n4) ``launch -n 2
+    --verify`` of ``tests/torch_world_programs/tag_mismatch.py``: exit 3,
+    the finding named, no rank started.  (n3) and (n4) run beside (n1).
+    Every rank thread's tensors live on the card."""
     if on_card:
         torch.cuda.empty_cache()
     py = sys.executable
@@ -2186,6 +2226,24 @@ def path_n(on_card, card, l_run, shape):
                    MPI4JAX_TPU_FAKE_HOSTS=ici_leg.FAKE_HOSTS)
         analyze = [py, "-m", "mpi4jax_tpu_torch.analyze", "--np", "4",
                    "--json", "--schedules", "--timeout", str(N_TIMEOUT_S)]
+        # (n3) and (n4) run beside (n1): each analyzer is one process whose
+        # rank threads share its interpreter lock, so the three fit the
+        # machine's cores side by side
+        days = N_DAYS if on_card else 0.02
+        pool = ThreadPoolExecutor(max_workers=2)
+        n3 = pool.submit(_timed, _run, "(n3) the analyzer on path (k)'s "
+                         "program", analyze + [
+                             "-m", "mpi4jax_tpu_torch.benchmarks.sw_world",
+                             "--", "--grid", str(GRID[0]), str(GRID[1]),
+                             "--size", str(shape[0]), str(shape[1]),
+                             "--days", str(days)] + dev_args,
+                         env, N_TIMEOUT_S + 120)
+        n4 = pool.submit(_timed, subprocess.run, [
+            py, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n", "2",
+            "--verify", os.path.join("tests", "torch_world_programs",
+                                     "tag_mismatch.py")] + dev_args,
+            env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+        pool.shutdown(wait=False)
         # (n1)
         l_out = os.path.join(tmp, "n1")
         os.makedirs(l_out)
@@ -2224,16 +2282,9 @@ def path_n(on_card, card, l_run, shape):
                      "unrecorded": len(prefix),
                      "cache_key": rep["cache_key"]}
         # (n3)
-        days = N_DAYS if on_card else 0.02
         if days != DAYS:
             log(f"  (n3) --days cut from {DAYS} to {days}")
-        t0 = time.perf_counter()
-        proc = _run("(n3) the analyzer on path (k)'s program", analyze + [
-            "-m", "mpi4jax_tpu_torch.benchmarks.sw_world", "--",
-            "--grid", str(GRID[0]), str(GRID[1]), "--size",
-            str(shape[0]), str(shape[1]), "--days", str(days)] + dev_args,
-            env, N_TIMEOUT_S + 120)
-        secs = time.perf_counter() - t0
+        proc, secs = n3.result()
         rep = json.loads(proc.stdout)
         if not rep["ok"] or rep["findings"]:
             fail(f"path (n3): findings on path (k)'s program: "
@@ -2243,18 +2294,13 @@ def path_n(on_card, card, l_run, shape):
         if sorted(halos) != list(range(4)) or min(halos.values()) == 0:
             fail(f"path (n3): halo exchanges per rank {halos}")
         log(f"  (n3) path (k)'s program at {tuple(shape)}, {days} day, "
-            f"analyzed clean at np=4 in {secs:.1f} s; events per rank "
+            f"analyzed clean at np=4 in {secs:.1f} s beside (n1); events "
+            f"per rank "
             f"{ {int(r): len(v) for r, v in rep['schedules'].items()} }, "
             f"of them halo exchanges {halos} [{card}]")
         out["n3"] = {"seconds": secs, "days": days, "halos": halos}
         # (n4)
-        t0 = time.perf_counter()
-        bad = subprocess.run(
-            [py, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n", "2",
-             "--verify", os.path.join("tests", "torch_world_programs",
-                                      "tag_mismatch.py")] + dev_args,
-            env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
-        secs = time.perf_counter() - t0
+        bad, secs = n4.result()
         if bad.returncode != 3 or "tag_mismatch" not in bad.stderr \
                 or "no rank was spawned" not in bad.stderr \
                 or "UNREACHABLE" in bad.stdout + bad.stderr:
@@ -2262,7 +2308,8 @@ def path_n(on_card, card, l_run, shape):
                  f"{bad.returncode}:\n{bad.stdout[-2000:]}\n"
                  f"{bad.stderr[-2000:]}")
         log(f"  (n4) launch -n 2 --verify tag_mismatch.py: exit 3, "
-            f"tag_mismatch named, no rank started, {secs:.1f} s")
+            f"tag_mismatch named, no rank started, {secs:.1f} s beside "
+            "(n1)")
         out["n4"] = {"seconds": secs}
     return out
 
@@ -2536,6 +2583,200 @@ def path_m3(dev, on_card, card):
     return {"launches": runs["token"][1], "bit_for_bit": bits}
 
 
+def _digests(text, marker):
+    import re
+
+    return sorted(re.findall(marker + r" (r\d+ [0-9a-f]{64})", text))
+
+
+def path_o(on_card, card):
+    """Phase 33: path (o), plan execution on the card.  (o1) the chain
+    pipeline of ``benchmarks.schedule_overlap`` at np 3, plan off then on
+    (the shm arena off, as the JAX bridge-level plan tests run): every
+    received block equal to its numpy oracle and each rank's digest equal
+    on and off (the ranks check both), the runner's counts summed over the
+    ranks with hoisted receives and deferred sends and no mismatch; the
+    us per round on and off (the slowest rank, through the runner's flush)
+    with every rank's split into sends, receives and the flush, the
+    bucketed and per-leaf seconds.  (o2)
+    ``launch -n 3 --plan`` of ``false_serialization.py``: the launcher
+    verifies the plan, no rank disables it, and the digests equal a
+    ``MPI4JAX_TPU_PLAN=0`` run's.  (o3) ``bucketed_dp_grad.py`` at np 2
+    under the plan that ``analyze --emit-plan`` gives for it: both ranks
+    print ``bucketed_dp_grad OK``."""
+    if on_card:
+        torch.cuda.empty_cache()
+    py = sys.executable
+    launch = [py, "-m", "mpi4jax_tpu_torch.runtime.launch"]
+    dev_args = ["--device", "cuda" if on_card else "cpu"]
+    progs = os.path.join("tests", "torch_world_programs")
+    out = {}
+    t_phase = time.perf_counter()
+    # (o1)
+    env = dict(os.environ, MPI4JAX_TPU_DISABLE_SHM="1")
+    env.pop("MPI4JAX_TPU_PLAN", None)
+    t0 = time.perf_counter()
+    proc = _run("(o1) schedule_overlap", launch + [
+        "-n", "3", "--timeout", "300", "-m",
+        "mpi4jax_tpu_torch.benchmarks.schedule_overlap", "--"]
+        + ([] if on_card else O_SMALL), env, 400)
+    secs = time.perf_counter() - t0
+    rec = next(json.loads(line) for line in reversed(
+        proc.stdout.splitlines()) if line.startswith('{"schedule_overlap"'))
+    run = rec["runner"]
+    if run["hoisted_recvs"] <= 0 or run["deferred_sends"] <= 0 \
+            or run["mismatches"] != 0 or not rec["digests_equal"]:
+        fail(f"path (o1): the runner's counts {run}")
+    by_rank = rec["us_per_round_by_rank"]
+    log(f"  (o1) chain of 3 ranks, {rec['rounds']} rounds of "
+        f"{rec['block_bytes']} B on {rec['device']}, {rec['compute_ms']} ms "
+        f"window, the slowest rank through the flush: plan off "
+        f"{rec['us_per_round_off']:.1f} us per round, on "
+        f"{rec['us_per_round_on']:.1f} us; the runner {run} (by rank "
+        f"{rec['runner_by_rank']}); every block its oracle, digests equal "
+        f"on and off; {rec['n_allreduce_per_leaf']} gradient allreduces "
+        f"{rec['per_leaf_s']:.6f} s, in {rec['n_buckets']} bucket(s) "
+        f"{rec['bucketed_s']:.6f} s; job {secs:.1f} s [{card}]")
+    for label in ("off", "on"):
+        log(f"    plan {label}, us per round by rank 0, 1, 2: " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.1f}" for v in by_rank[label][k])
+            for k in ("total", "send", "recv", "flush")))
+    out["o1"] = dict(rec, seconds=secs)
+    # (o2) and (o3)'s pre-flight side by side: the plan-off run and the
+    # analyzer of bucketed_dp_grad.py start beside the timed --plan launch
+    fs = os.path.join(progs, "false_serialization.py")
+    bucketed = os.path.join(progs, "bucketed_dp_grad.py")
+    env = dict(os.environ)
+    env.pop("MPI4JAX_TPU_PLAN", None)
+    with tempfile.TemporaryDirectory(prefix="path_o_") as tmp:
+        plan = os.path.join(tmp, "plan.json")
+        side = {
+            "(o2) false_serialization.py, MPI4JAX_TPU_PLAN=0": subprocess.Popen(
+                launch + ["-n", "3", "--timeout", "300", fs] + dev_args,
+                env=dict(env, MPI4JAX_TPU_PLAN="0"), cwd=REPO, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+            "(o3) analyze --emit-plan bucketed_dp_grad.py": subprocess.Popen(
+                [py, "-m", "mpi4jax_tpu_torch.analyze", bucketed, "--np", "2",
+                 "--emit-plan", plan, "--"] + dev_args,
+                env=env, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)}
+        t0 = time.perf_counter()
+        on = _run("(o2) launch --plan false_serialization.py", launch + [
+            "-n", "3", "--timeout", "300", "--plan", fs] + dev_args, env,
+            400)
+        secs = time.perf_counter() - t0
+        done = {}
+        for what, proc in side.items():
+            stdout, stderr = proc.communicate(timeout=400)
+            if proc.returncode != 0:
+                fail(f"{what} exited {proc.returncode}:\n{stdout[-3000:]}\n"
+                     f"{stderr[-3000:]}")
+            done[what] = stdout
+        if "--plan: verified plan" not in on.stderr \
+                or "plan execution disabled" in on.stderr:
+            fail(f"path (o2): launch --plan did not run a verified plan:\n"
+                 f"{on.stderr[-2000:]}")
+        d_on = _digests(on.stdout, "false_serialization digest")
+        d_off = _digests(done["(o2) false_serialization.py, "
+                              "MPI4JAX_TPU_PLAN=0"],
+                         "false_serialization digest")
+        if d_on != d_off or len(d_on) != 3:
+            fail(f"path (o2): digests with the plan {d_on}, without {d_off}")
+        log(f"  (o2) launch -n 3 --plan false_serialization.py: verified "
+            f"plan, 3 digests equal to the MPI4JAX_TPU_PLAN=0 run's; "
+            f"{secs:.1f} s with the pre-flight, beside the plan-off run and "
+            "(o3)'s analyzer")
+        out["o2"] = {"seconds": secs}
+        t0 = time.perf_counter()
+        proc = _run("(o3) bucketed_dp_grad.py under its plan", launch + [
+            "-n", "2", "--timeout", "300", bucketed] + dev_args,
+            dict(env, MPI4JAX_TPU_PLAN=plan), 400)
+        secs = time.perf_counter() - t0
+    if proc.stdout.count("bucketed_dp_grad OK") != 2 \
+            or "plan execution disabled" in proc.stderr:
+        fail(f"path (o3): {proc.stdout[-1000:]}\n{proc.stderr[-1000:]}")
+    log(f"  (o3) bucketed_dp_grad.py at np 2 under its emitted plan: OK on "
+        f"both ranks, {secs:.1f} s")
+    out["o3"] = {"seconds": secs}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 33: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def path_p(dev, on_card, card):
+    """Phase 34: path (p), live re-tuning onto the leg.  (p1) ``launch -n 4
+    --fake-hosts 'r0,r1|r2,r3' --live`` of ``benchmarks.live_world``: path
+    (g)'s f32 SUM allreduce (16 MiB a rank on the card) 30 times under a
+    tune cache pinned to ``ring``; rank 0 proposes ``hring`` after call 10.
+    Every rank reports epoch 1 and one swap at the same boundary; the calls
+    before the commit ran ``ring`` and those after it ``hring``, each bit
+    for bit its simulator on every rank, with kernel 3 launched 0 times per
+    rank per call before the commit and once after it (each rank checks
+    its own calls).  (p2) the same job without ``--live``: epoch 0, no
+    swap, no boundary hook, every call ``ring``.  The ms per call, the
+    slowest rank's median: (p1) before the proposal, (p2), (p1) after the
+    swap."""
+    from mpi4jax_tpu_torch.benchmarks import live_world
+
+    if on_card:
+        torch.cuda.empty_cache()
+    mib = live_world.MIB if on_card else P_SMALL_MIB
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, is_live in (("p1", True), ("p2", False)):
+        t0 = time.perf_counter()
+        runs[name] = live_world.run_job(live=is_live, device=str(dev),
+                                        mib=mib, timeout=300)
+        runs[name]["job_seconds"] = time.perf_counter() - t0
+    p1, p2 = runs["p1"], runs["p2"]
+    n = p1["ranks"]
+    commit = p1["commit_call"]
+    if p1["epochs"] != [1] * n or p1["swaps"] != [1] * n \
+            or len(set(p1["commit_boundaries"])) != 1 or commit is None:
+        fail(f"path (p1): epochs {p1['epochs']}, swaps {p1['swaps']}, "
+             f"commit boundaries {p1['commit_boundaries']}")
+    if commit < p1["propose_after"] or p1["schedules"] != \
+            ["ring"] * commit + ["hring"] * (p1["calls"] - commit):
+        fail(f"path (p1): schedules {p1['schedules']}")
+    want = [0] * commit + [int(on_card)] * (p1["calls"] - commit)
+    if p1["launches"] != want:
+        fail(f"path (p1): kernel 3 per call on rank 0 {p1['launches']}")
+    if p2["epochs"] != [0] * n or p2["swaps"] != [0] * n \
+            or p2["hooks_installed"] != [0] * n \
+            or p2["schedules"] != ["ring"] * p2["calls"] \
+            or any(p2["launches"]):
+        fail(f"path (p2): epochs {p2['epochs']}, swaps {p2['swaps']}, "
+             f"hooks {p2['hooks_installed']}, schedules {p2['schedules']}")
+    p2_ms = statistics.median(p2["ms_slowest_rank"][1:p1["propose_after"]])
+    log(f"  (p1) {n} ranks on {live_world.FAKE_HOSTS}, {p1['calls']} f32 SUM "
+        f"allreduces of {p1['bytes']} B a rank on {p1['device']}: epoch 1 "
+        f"on every rank, one swap at boundary {p1['commit_boundaries'][0]} "
+        f"(a rendezvous every {p1['period']}), committed in call "
+        f"{commit + 1}; calls 1-{commit} ring, {commit + 1}-{p1['calls']} "
+        f"hring on the leg, each bit for bit its simulator on every rank; "
+        f"kernel 3 launches by rank {p1['launches_by_rank']} (1 per call "
+        f"after the commit, 0 before); job {p1['job_seconds']:.1f} s "
+        f"[{card}]")
+    log(f"  (p2) live off: epoch 0, no swap, no boundary hook, every call "
+        f"ring; job {p2['job_seconds']:.1f} s")
+    before = p1["ms_slowest_rank"][1:p1["propose_after"]]
+    off = p2["ms_slowest_rank"][1:p1["propose_after"]]
+    after = p1["ms_slowest_rank"][commit + 1:]
+    log(f"  ms per call (the slowest rank's median, [min, max]): (p1) "
+        f"before the proposal {p1['ms_before']:.3f} [{min(before):.3f}, "
+        f"{max(before):.3f}] (calls 2-{p1['propose_after']}), (p2) "
+        f"{p2_ms:.3f} [{min(off):.3f}, {max(off):.3f}] (the same calls), "
+        f"(p1) after the swap {p1['ms_after']:.3f} [{min(after):.3f}, "
+        f"{max(after):.3f}] (calls {commit + 2}-{p1['calls']}); the first "
+        f"two differ by {p1['ms_before'] - p2_ms:+.3f}, the header bcast's "
+        f"cost and the noise between two jobs [{card}]")
+    out = {"p1": p1, "p2": p2, "p2_ms": p2_ms,
+           "kernel3_launches": sum(p1["launches_by_rank"]),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 34: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def path_m(dev, shape, on_card, card):
     """Phase 31: path (m), parts (m1)-(m3)."""
     t0 = time.perf_counter()
@@ -2618,7 +2859,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-32 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-34 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -2781,6 +3022,12 @@ def main(argv=None):
     log(f"phase 32: path (n), the static verifier: path (l)'s and path "
         f"(k)'s programs at np=4, a refused launch [{card}]")
     path_n(on_card, card, l_run, shape)
+    log(f"phase 33: path (o), plan execution: the chain pipeline, "
+        f"launch --plan, a bucketed gradient sync under its plan [{card}]")
+    path_o(on_card, card)
+    log(f"phase 34: path (p), live re-tuning onto the leg on {WORLD_RANKS} "
+        f"world ranks on {ici_leg.FAKE_HOSTS} [{card}]")
+    p_run = path_p(dev, on_card, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:
@@ -2956,6 +3203,12 @@ def main(argv=None):
         "winners": m1["winners"], "tune_seconds": m1["tune_seconds"],
         "sub_jobs": m1["sub_jobs"],
         "checkpoint": m2}
+    ring_row["launches_path_p"] = p_run["kernel3_launches"]
+    ring_row["path_p"] = {k: p_run[k] for k in ("p2_ms", "seconds")} | {
+        name: {k: p_run[name][k] for k in (
+            "epochs", "swaps", "commit_boundaries", "commit_call", "ms_before",
+            "ms_after", "job_seconds", "bytes", "launches_by_rank")}
+        for name in ("p1", "p2")}
     ring_row["path_h"] = h_runs
     hop_row["path_i"] = i_runs
     a2a_row["path_j"] = j_runs

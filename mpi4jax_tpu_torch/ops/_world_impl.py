@@ -37,6 +37,15 @@ the JAX package's 13 host sites do (``:931-1160`` there): the debug lines
 of ``MPI4JAX_TPU_DEBUG`` and, when the recorder is armed, one ops-layer
 span per call, timing the whole call as the caller sees it (staging, the
 native call, the copy back).
+
+**plan execution.**  Inside its ``CallTrace``, after the analysis
+executor's offer, each staged op consults the plan runner
+(``runtime/planrt.py``) with the JAX executors' kinds and signatures
+(``:879-1160`` there): ``send`` goes to ``run_send`` (a CUDA tensor's
+fresh pinned copy as an owned payload, a CPU tensor's storage copied by the
+runner), a ``recv`` without a status to ``run_recv``, a ``recv`` with one
+and every other op to ``run_sync``.  With ``MPI4JAX_TPU_PLAN`` unset that
+is one module-global check.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import threading
 
 import torch
 
-from ..runtime import bridge
+from ..runtime import bridge, planrt
 from ..utils import dtypes as _dtypes
 from ..utils import tracing
 from ..utils.algos import ALGO_CODES
@@ -281,6 +290,18 @@ def chain_token(comm, token):
     return out
 
 
+# ---------------- plan execution (runtime/planrt.py) ----------------
+
+
+def _plan_sync(comm, kind, execute, **sig):
+    """Run a staged op under the plan runner's cursor, or directly when no
+    plan serves ``comm``."""
+    rt = planrt.get(comm)
+    if rt is None:
+        return execute()
+    return rt.run_sync(kind, execute, **sig)
+
+
 # ---------------- staging ----------------
 
 
@@ -357,11 +378,17 @@ def _allreduce(x, comm, op_code: int, algo=None):
             lambda: f"op {_OP_NAMES[op_code]} "
                     + _algo_detail(comm, "allreduce", nb, algo),
             nbytes=nb):
-        send = _to_host(x)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.allreduce_raw(comm.handle, _np(send), _np(out), _code(send),
-                             op_code, algo=_algo_code(algo))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.allreduce_raw(comm.handle, _np(send), _np(out),
+                                 _code(send), op_code, algo=_algo_code(algo))
+            return _to_device(out, comm)
+
+        # the signature stays ("allreduce", op, bytes) under a forced
+        # schedule: only the wire differs
+        return _plan_sync(comm, "allreduce", run,
+                          reduce_op=_OP_NAMES[op_code], nbytes=nb)
 
 
 def _allgather(x, comm):
@@ -372,11 +399,14 @@ def _allgather(x, comm):
     with tracing.CallTrace(
             comm.rank(), "Allgather",
             lambda: _algo_detail(comm, "allgather", nb, None), nbytes=nb):
-        send = _to_host(x)
-        out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype,
-                          comm)
-        bridge.allgather_raw(comm.handle, _np(send), _np(out))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty((comm.size(),) + tuple(send.shape),
+                              send.dtype, comm)
+            bridge.allgather_raw(comm.handle, _np(send), _np(out))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "allgather", run, nbytes=nb)
 
 
 def _gather(x, root, comm):
@@ -385,16 +415,19 @@ def _gather(x, root, comm):
         return ex.run_op("gather", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Gather", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
-        send = _to_host(x)
-        if comm.rank() != root:
+        def run():
+            send = _to_host(x)
+            if comm.rank() != root:
+                bridge.gather(comm.handle, _np(send), comm.size(), root,
+                              comm.rank())
+                return x.detach().clone()  # the non-root result: its input
+            out = _host_empty((comm.size(),) + tuple(send.shape),
+                              send.dtype, comm)
             bridge.gather(comm.handle, _np(send), comm.size(), root,
-                          comm.rank())
-            return x.detach().clone()  # the non-root result is its input
-        out = _host_empty((comm.size(),) + tuple(send.shape), send.dtype,
-                          comm)
-        bridge.gather(comm.handle, _np(send), comm.size(), root, comm.rank(),
-                      out=_np(out))
-        return _to_device(out, comm)
+                          comm.rank(), out=_np(out))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "gather", run, root=root, nbytes=_nbytes(x))
 
 
 def _reduce(x, op_code, root, comm):
@@ -405,13 +438,17 @@ def _reduce(x, op_code, root, comm):
     with tracing.CallTrace(comm.rank(), "Reduce",
                            f"op {_OP_NAMES[op_code]} root {root}", peer=root,
                            nbytes=_nbytes(x)):
-        send = _to_host(x)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.reduce(comm.handle, _np(send), op_code, root, out=_np(out),
-                      dtype_code=_code(send))
-        if comm.rank() != root:
-            return x.detach().clone()  # the transport hands the input back
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.reduce(comm.handle, _np(send), op_code, root,
+                          out=_np(out), dtype_code=_code(send))
+            if comm.rank() != root:
+                return x.detach().clone()  # the transport hands it back
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "reduce", run, reduce_op=_OP_NAMES[op_code],
+                          root=root, nbytes=_nbytes(x))
 
 
 def _scan(x, op_code, comm):
@@ -420,11 +457,15 @@ def _scan(x, op_code, comm):
         return ex.run_op("scan", x, comm, op=_OP_NAMES[op_code])
     with tracing.CallTrace(comm.rank(), "Scan", f"op {_OP_NAMES[op_code]}",
                            nbytes=_nbytes(x)):
-        send = _to_host(x)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.scan(comm.handle, _np(send), op_code, out=_np(out),
-                    dtype_code=_code(send))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.scan(comm.handle, _np(send), op_code, out=_np(out),
+                        dtype_code=_code(send))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "scan", run, reduce_op=_OP_NAMES[op_code],
+                          nbytes=_nbytes(x))
 
 
 def _bcast(x, root, comm):
@@ -433,10 +474,13 @@ def _bcast(x, root, comm):
         return ex.run_op("bcast", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Bcast", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
-        send = _to_host(x)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.bcast(comm.handle, _np(send), root, out=_np(out))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.bcast(comm.handle, _np(send), root, out=_np(out))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "bcast", run, root=root, nbytes=_nbytes(x))
 
 
 def _scatter(x, root, comm):
@@ -445,10 +489,13 @@ def _scatter(x, root, comm):
         return ex.run_op("scatter", x, comm, root=root)
     with tracing.CallTrace(comm.rank(), "Scatter", f"root {root}", peer=root,
                            nbytes=_nbytes(x)):
-        send = _to_host(x)
-        out = _host_empty(send.shape[1:], send.dtype, comm)
-        bridge.scatter(comm.handle, _np(send), root, out=_np(out))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape[1:], send.dtype, comm)
+            bridge.scatter(comm.handle, _np(send), root, out=_np(out))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "scatter", run, root=root, nbytes=_nbytes(x))
 
 
 def _alltoall(x, comm, algo=None):
@@ -458,11 +505,15 @@ def _alltoall(x, comm, algo=None):
     with tracing.CallTrace(comm.rank(), "Alltoall",
                            f"algo {algo} (forced)" if algo is not None
                            else "", nbytes=_nbytes(x)):
-        send = _to_host(x)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.alltoall(comm.handle, _np(send), out=_np(out),
-                        algo=_algo_code(algo), dtype_code=_code(send))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(x)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.alltoall(comm.handle, _np(send), out=_np(out),
+                            algo=_algo_code(algo), dtype_code=_code(send))
+            return _to_device(out, comm)
+
+        # quantized or hierarchical, it is an alltoall to the plan
+        return _plan_sync(comm, "alltoall", run, nbytes=_nbytes(x))
 
 
 def _shift2(stack, lo, hi, tag, comm):
@@ -471,10 +522,14 @@ def _shift2(stack, lo, hi, tag, comm):
         return ex.run_op("shift2", stack, comm, lo=lo, hi=hi, tag=tag)
     with tracing.CallTrace(comm.rank(), "Shift2", f"lo {lo} hi {hi}",
                            peer=hi, nbytes=_nbytes(stack), tag=tag):
-        send = _to_host(stack)
-        out = _host_empty(send.shape, send.dtype, comm)
-        bridge.shift2(comm.handle, _np(send), lo, hi, tag, out=_np(out))
-        return _to_device(out, comm)
+        def run():
+            send = _to_host(stack)
+            out = _host_empty(send.shape, send.dtype, comm)
+            bridge.shift2(comm.handle, _np(send), lo, hi, tag, out=_np(out))
+            return _to_device(out, comm)
+
+        return _plan_sync(comm, "shift2", run, lo=lo, hi=hi, tag=tag,
+                          nbytes=_nbytes(stack))
 
 
 def _recv(x, source, tag, comm, status):
@@ -484,15 +539,27 @@ def _recv(x, source, tag, comm, status):
                          status=status)
     with tracing.CallTrace(comm.rank(), "Recv", f"from {source} tag {tag}",
                            peer=source, nbytes=_nbytes(x), tag=tag):
-        out = _host_empty(x.shape, x.dtype, comm)
+        rt = planrt.get(comm)
         if status is None:
+            if rt is not None:
+                got = rt.run_recv(x.shape, x.dtype, source, tag)
+                if got is not None:
+                    return _to_device(got, comm)
             # strict: the arrived size must equal the buffer exactly
+            out = _host_empty(x.shape, x.dtype, comm)
             bridge.recv(comm.handle, _np(out), source, tag)
-        else:
+            return _to_device(out, comm)
+
+        def run():
+            out = _host_empty(x.shape, x.dtype, comm)
             _, src, tg, cnt = bridge.recv_status(comm.handle, _np(out),
                                                  source, tag)
             status._fill(src, tg, cnt)
-        return _to_device(out, comm)
+            return _to_device(out, comm)
+
+        if rt is None:
+            return run()
+        return rt.run_sync("recv", run, source=source, tag=tag)
 
 
 def _sendrecv(x, source, dest, sendtag, recvtag, status, comm):
@@ -503,8 +570,11 @@ def _sendrecv(x, source, dest, sendtag, recvtag, status, comm):
     with tracing.CallTrace(comm.rank(), "Sendrecv",
                            f"to {dest} from {source}", peer=dest,
                            nbytes=2 * _nbytes(x), tag=sendtag):
-        return _sendrecv_staged(x, source, dest, sendtag, recvtag, status,
-                                comm)
+        return _plan_sync(
+            comm, "sendrecv",
+            lambda: _sendrecv_staged(x, source, dest, sendtag, recvtag,
+                                     status, comm),
+            dest=dest, source=source, sendtag=sendtag, recvtag=recvtag)
 
 
 def _sendrecv_staged(x, source, dest, sendtag, recvtag, status, comm):
@@ -660,7 +730,7 @@ def barrier(comm):
     if ex is not None and ex.owns(comm):
         return ex.run_op("barrier", None, comm)
     with tracing.CallTrace(comm.rank(), "Barrier", ""):
-        bridge.barrier(comm.handle)
+        _plan_sync(comm, "barrier", lambda: bridge.barrier(comm.handle))
 
 
 def send(x, dest, tag, comm):
@@ -669,7 +739,14 @@ def send(x, dest, tag, comm):
         return ex.run_op("send", x, comm, dest=dest, tag=tag)
     with tracing.CallTrace(comm.rank(), "Send", f"to {dest} tag {tag}",
                            peer=dest, nbytes=_nbytes(x), tag=tag):
-        bridge.send(comm.handle, _np(_to_host(x)), dest, tag)
+        host = _to_host(x)
+        rt = planrt.get(comm)
+        # a CUDA tensor's staged copy is fresh and the runner's to keep; a
+        # CPU tensor's is the caller's storage, which the runner copies
+        if rt is None or not rt.run_send(_np(host), dest, tag,
+                                         owned=x.device.type == "cuda",
+                                         keep=host):
+            bridge.send(comm.handle, _np(host), dest, tag)
 
 
 def recv(x, source, tag, comm, status=None):

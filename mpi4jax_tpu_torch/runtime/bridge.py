@@ -20,8 +20,24 @@ after a clock-alignment handshake and schedules this rank's dump at
 interpreter exit (``_install_obs``), as ``runtime/bridge.py:551-563,
 833-880`` there; the native event ring's entry points are bound here and
 decoded by ``obs/_native.py``.  ``MPI4JAX_TPU_DEBUG`` turns on the
-transport's own debug lines (``tpucomm_set_logging``).  Live re-tuning and
-plan execution are not ported (ROADMAP.md).
+transport's own debug lines (``tpucomm_set_logging``).
+
+Two control-plane layers plug in here, as ``bridge.py:514-597, 808-829,
+1029-1100, 1259-1546`` there:
+
+- **plan execution** (``runtime/planrt.py``): the ticketed posts
+  (``post_send``, ``post_recv_into``, ``post_recv``, ``wait_ticket``) put
+  a descriptor on the progress engine without waiting, and ``comm_init``
+  attaches the verified plan that ``MPI4JAX_TPU_PLAN`` names to the world
+  comm;
+- **live re-tuning** (``live/``): ``stage_coll_table``,
+  ``commit_coll_tables`` and ``coll_epoch`` swap the decision table at an
+  agreed boundary, and the boundary hook (``set_live_boundary``) runs
+  exactly once at the top of every collective wrapper (``barrier``,
+  ``bcast``, ``reduce``, ``scan``, ``gather``, ``scatter``,
+  ``allgather_raw``, ``alltoall``, ``allreduce_raw``), with the comm's
+  handle: the live layer counts only the world comm's.  ``comm_init`` arms
+  it under ``MPI4JAX_TPU_LIVE=auto``; ``comm_finalize`` disarms it first.
 
 The build.  The transport is ``native/tpucomm.cc``, built transport-only
 (no XLA FFI) with the JAX package's flags (``bridge.py:45-52`` there) into
@@ -192,6 +208,20 @@ def get_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = args
+    # guarded like the JAX bridge's (``:152-157`` there): a library
+    # without them reports plans and live re-tuning unavailable
+    if hasattr(lib, "tpucomm_post"):
+        lib.tpucomm_post.restype = i64
+        lib.tpucomm_post.argtypes = [i64, ptr]
+        lib.tpucomm_wait_ticket.restype = c_int
+        lib.tpucomm_wait_ticket.argtypes = [i64, i64]
+    if hasattr(lib, "tpucomm_commit_coll_tables"):
+        lib.tpucomm_stage_coll_table.restype = None
+        lib.tpucomm_stage_coll_table.argtypes = [c_int, i64p, i32p, c_int]
+        lib.tpucomm_commit_coll_tables.restype = c_int
+        lib.tpucomm_commit_coll_tables.argtypes = [i64, i64]
+        lib.tpucomm_coll_epoch.restype = i64
+        lib.tpucomm_coll_epoch.argtypes = []
     if config.debug_enabled():
         lib.tpucomm_set_logging(1)
     _lib = lib
@@ -234,7 +264,9 @@ def comm_init(rank: int, size: int, coord: str, device=None,
               hosts=None) -> int:
     """Connect this rank's world comm (collective over the world), run
     topology discovery, install the tune layers (``tune.install``), arm the
-    recorder when asked (``_install_obs``) and return the native handle.
+    recorder when asked (``_install_obs``), arm live re-tuning under
+    ``MPI4JAX_TPU_LIVE=auto`` and attach the plan that ``MPI4JAX_TPU_PLAN``
+    names, and return the native handle.
     ``device`` is where the world's tensors live: the leg runs its kernels
     there.  ``hosts`` is the per-rank host list (comma-separated; default
     ``MPI4JAX_TPU_HOSTS``, else every rank on 127.0.0.1)."""
@@ -255,6 +287,34 @@ def comm_init(rank: int, size: int, coord: str, device=None,
     # collective (the launcher sets MPI4JAX_TPU_TRACE on every rank)
     if config.trace_path() is not None or obs.enabled():
         _install_obs(lib, handle, rank, size)
+    # live re-tuning: arming must agree across ranks too (the rendezvous
+    # bcasts at agreed boundaries); a malformed knob stays fatal, anything
+    # else warns and the job runs untuned
+    if config.live_mode() == "auto":
+        try:
+            from .. import live
+
+            live.arm(lib, handle, rank, size)
+        except ValueError:
+            raise
+        except Exception as e:  # a live-plane fault must not end the job
+            import warnings
+
+            warnings.warn(f"live re-tuning arm failed: {e}")
+    # plan execution: attach this rank's schedule of the verified plan
+    # that MPI4JAX_TPU_PLAN names; a bad plan warns and the job runs the
+    # ops as they come
+    from . import planrt
+
+    if planrt.plan_spec() is not None:
+        try:
+            planrt.maybe_install_from_env(
+                handle, rank, size,
+                pin_memory=getattr(device, "type", None) == "cuda")
+        except Exception as e:
+            import warnings
+
+            warnings.warn(f"schedule-plan install failed: {e}")
     return handle
 
 
@@ -345,10 +405,71 @@ def _install_topology(lib, handle, rank: int, size: int, device):
     return t
 
 
+# ---------------- live re-tuning: the boundary hook ----------------
+
+#: the live layer's hook, called with the comm's handle at the top of every
+#: collective wrapper; None (the default) costs one global read per call
+_live_boundary = None
+
+
+def set_live_boundary(fn) -> None:
+    """Install (or with None clear) the collective-boundary hook."""
+    global _live_boundary
+    _live_boundary = fn
+
+
+def _live_disarm(handle=None) -> None:
+    """Stop the live controller and clear the hook, if armed: a closing
+    world's hook must not rendezvous on a dead handle.  ``handle``
+    restricts it to that comm's controller."""
+    if _live_boundary is None:
+        return
+    try:
+        from .. import live
+
+        live.disarm(handle=handle)
+    except Exception:  # teardown goes on whatever the live layer says
+        set_live_boundary(None)
+
+
+def stage_coll_table(coded_table) -> bool:
+    """Park candidate decision tables (``{op_kind: [(min_bytes,
+    algo_code), ...]}``) in the native staging slots without touching
+    dispatch; False when the library predates them."""
+    lib = get_lib()
+    if not hasattr(lib, "tpucomm_stage_coll_table"):
+        return False
+    _push_tables(lib.tpucomm_stage_coll_table, coded_table)
+    return True
+
+
+def commit_coll_tables(handle, epoch: int) -> bool:
+    """Promote every staged table under the comm lock with the progress
+    engine quiesced, stamping ``epoch`` (every rank at the same
+    boundary); False when the library predates it."""
+    lib = get_lib()
+    if not hasattr(lib, "tpucomm_commit_coll_tables"):
+        return False
+    if lib.tpucomm_commit_coll_tables(int(handle), int(epoch)) != 0:
+        raise ValueError(f"bad comm handle {handle}")
+    return True
+
+
+def coll_epoch():
+    """The decision table's epoch (0: the table installed at comm
+    creation), or None when the library predates live re-tuning."""
+    lib = get_lib()
+    if not hasattr(lib, "tpucomm_coll_epoch"):
+        return None
+    return int(lib.tpucomm_coll_epoch())
+
+
 def comm_finalize(handle) -> None:
-    """Close a comm; its topology sub-comms go first."""
+    """Close a comm: the live hook is disarmed first, then its topology
+    sub-comms go."""
     from .. import topo
 
+    _live_disarm(handle)
     _topo_subcomms.pop(int(handle), None)
     for sub in _topo_handles.pop(int(handle), []):
         get_lib().tpucomm_finalize(sub)
@@ -384,12 +505,17 @@ def shm_active(handle) -> bool:
 def set_coll_table(coded_table) -> None:
     """Install the process-wide decision tables: ``{op_kind: [(min_bytes,
     algo_code), ...]}`` (``tune.install``)."""
-    lib = get_lib()
+    _push_tables(get_lib().tpucomm_set_coll_table, coded_table)
+
+
+def _push_tables(fn, coded_table) -> None:
+    """``fn(op_kind, min_bytes[], algo_codes[], n)`` for each op kind's
+    table."""
     for op_kind, entries in coded_table.items():
         n = len(entries)
         mins = (ctypes.c_int64 * n)(*[int(e[0]) for e in entries])
         algos = (ctypes.c_int32 * n)(*[int(e[1]) for e in entries])
-        lib.tpucomm_set_coll_table(int(op_kind), mins, algos, n)
+        fn(int(op_kind), mins, algos, n)
 
 
 def comm_rank(handle) -> int:
@@ -489,12 +615,16 @@ def shift2(handle, buf, lo: int, hi: int, tag: int,
 
 
 def barrier(handle):
+    if _live_boundary is not None:
+        _live_boundary(handle)
     _check("Barrier", get_lib().tpucomm_barrier(handle))
 
 
 def bcast(handle, buf, root, out=None) -> np.ndarray:
     """The root's ``buf`` on every rank; ``buf`` is not written (the
     broadcast runs in a copy, ``out`` when given)."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     out = _new_out(out, buf.shape, buf.dtype)
     np.copyto(out, buf)
@@ -506,6 +636,8 @@ def bcast(handle, buf, root, out=None) -> np.ndarray:
 def reduce(handle, buf, op_code: int, root: int, out: np.ndarray,
            dtype_code: int) -> np.ndarray:
     """The reduction on the root; the other ranks get ``buf`` back."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     out = _new_out(out, buf.shape, buf.dtype)
     _check("Reduce", get_lib().tpucomm_reduce(
@@ -517,6 +649,8 @@ def reduce(handle, buf, op_code: int, root: int, out: np.ndarray,
 def scan(handle, buf, op_code: int, out: np.ndarray,
          dtype_code: int) -> np.ndarray:
     """The inclusive prefix reduction over ranks 0..rank."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     out = _new_out(out, buf.shape, buf.dtype)
     _check("Scan", get_lib().tpucomm_scan(
@@ -529,6 +663,8 @@ def gather(handle, buf, size: int, root: int, rank: int, out=None
            ) -> np.ndarray:
     """``(size, *buf.shape)`` on the root; a non-root rank only sends and
     gets ``buf`` back (the reference's contract)."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     if rank == root:
         out = _new_out(out, (size,) + buf.shape, buf.dtype)
@@ -541,6 +677,8 @@ def gather(handle, buf, size: int, root: int, rank: int, out=None
 
 def scatter(handle, buf, root: int, out: np.ndarray) -> np.ndarray:
     """Row ``rank`` of the root's ``(size, ...)`` buffer."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     out = _new_out(out, buf.shape[1:], buf.dtype)
     _check("Scatter", get_lib().tpucomm_scatter(
@@ -553,6 +691,8 @@ def allgather_raw(handle, buf: np.ndarray, out: np.ndarray,
     """Allgather of contiguous ``buf`` into ``out``; ``algo`` is the
     algorithm code forced for this call (None or 0: the engine's
     choice)."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     _check("Allgather", get_lib().tpucomm_allgather_algo(
         handle, _ptr(buf), buf.nbytes, _ptr(out), int(algo or 0)))
 
@@ -568,6 +708,8 @@ def alltoall(handle, buf, out: np.ndarray, algo: Optional[int],
              dtype_code: int) -> np.ndarray:
     """Row ``j`` of ``buf`` to rank ``j``; row ``j`` of the result from
     rank ``j``.  The typed entry (elements per row and their dtype)."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     buf = _contig(buf)
     out = _new_out(out, buf.shape, buf.dtype)
     _check("Alltoall", get_lib().tpucomm_alltoall_algo(
@@ -596,6 +738,8 @@ def allreduce_raw(handle, buf: np.ndarray, out: np.ndarray, dtype_code: int,
     algorithm code forced for this call (None or 0: the engine's choice).
     The intra-island leg (``topo/_ici_leg.py``) takes an eligible call
     before the native paths."""
+    if _live_boundary is not None:
+        _live_boundary(handle)
     if _ici_leg_hook(handle, buf, out, dtype_code, op_code, algo):
         return
     _check("Allreduce", get_lib().tpucomm_allreduce_algo(
@@ -610,6 +754,99 @@ def allreduce(handle, buf, op_code: int, algo: Optional[int] = None
     out = np.empty_like(buf)
     allreduce_raw(handle, buf, out, wire_code(buf), op_code, algo=algo)
     return out
+
+
+# ---------------- ticketed non-blocking posts (plan execution) ----------
+#
+# The plan runner (``runtime/planrt.py``) posts descriptors on the progress
+# engine without waiting: a hoisted receive reads the wire while the host
+# computes, a deferred send streams without blocking the caller.  The
+# engine drains FIFO, so post order is wire order, the contract the
+# plan's equivalence prover checked.  A post runs the same op body as the
+# blocking entries (``engine_run_body``, ``native/tpucomm.cc:6485``), so it
+# rides the same-host shm ring whenever the blocking op would.  Every ticket
+# is waited exactly once, and the caller keeps the buffers alive until
+# then.
+
+
+class _OpExec(ctypes.Structure):
+    """Mirror of ``struct TpuOpExec`` (``native/tpucomm.h:534``), field for
+    field."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int32),
+        ("algo", ctypes.c_int32),
+        ("sbuf", ctypes.c_void_p),
+        ("rbuf", ctypes.c_void_p),
+        ("snbytes", ctypes.c_int64),
+        ("rnbytes", ctypes.c_int64),
+        ("count", ctypes.c_int64),
+        ("dtype", ctypes.c_int32),
+        ("rop", ctypes.c_int32),
+        ("peer", ctypes.c_int32),
+        ("peer2", ctypes.c_int32),
+        ("tag", ctypes.c_int32),
+        ("tag2", ctypes.c_int32),
+    ]
+
+
+#: the TpuObsOp codes (``native/tpucomm.h``) the posts use as
+#: ``TpuOpExec.kind``
+_K_SEND, _K_RECV = 0, 1
+
+
+def post_available() -> bool:
+    """True when the loaded library carries the ticketed post entry."""
+    return hasattr(get_lib(), "tpucomm_post")
+
+
+def _post(handle, d: _OpExec) -> int:
+    ticket = get_lib().tpucomm_post(int(handle), ctypes.addressof(d))
+    if ticket == 0:
+        _abort("Post", 1)
+    return ticket
+
+
+def post_send(handle, buf: np.ndarray, dest: int, tag: int):
+    """Non-blocking send post; returns ``(ticket, keepalive)``.  The caller
+    owns ``buf``'s storage, unchanged, until :func:`wait_ticket` returns
+    for the ticket, and holds ``keepalive`` (the contiguous payload and the
+    descriptor) until then."""
+    buf = _contig(buf)
+    d = _OpExec()
+    d.kind = _K_SEND
+    d.sbuf = _ptr(buf)
+    d.snbytes = buf.nbytes
+    d.peer = int(dest)
+    d.tag = int(tag)
+    return _post(handle, d), (buf, d)
+
+
+def post_recv_into(handle, out: np.ndarray, source: int, tag: int):
+    """Non-blocking receive post into ``out``, which stays alive and unread
+    until :func:`wait_ticket` returns; returns ``(ticket, keepalive)``."""
+    d = _OpExec()
+    d.kind = _K_RECV
+    d.rbuf = _ptr(out)
+    d.rnbytes = out.nbytes
+    d.peer2 = int(source)
+    d.tag = int(tag)
+    return _post(handle, d), d
+
+
+def post_recv(handle, shape, dtype, source: int, tag: int):
+    """Non-blocking receive post into a fresh array; returns ``(ticket,
+    out, keepalive)``, ``out`` valid once the ticket is waited."""
+    out = np.empty(shape, dtype)
+    ticket, d = post_recv_into(handle, out, source, tag)
+    return ticket, out, d
+
+
+def wait_ticket(handle, ticket: int) -> None:
+    """Block until a posted op completes; a failed op exits the process as
+    the blocking entries do."""
+    _check("WaitTicket", get_lib().tpucomm_wait_ticket(int(handle),
+                                                       int(ticket)))
 
 
 # ---------------- the transport's int8 wire codec ----------------

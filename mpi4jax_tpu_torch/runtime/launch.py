@@ -2,7 +2,7 @@
 
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 [--fake-hosts 'r0,r1|r2,r3'] \\
         [--hosts H0,H1,...] [--port P] [--timeout S] [--trace out.json] \\
-        [--verify] prog.py [args...]
+        [--verify] [--plan] [--live] prog.py [args...]
     python -m mpi4jax_tpu_torch.runtime.launch -n 4 -m package.module [-- args...]
 
 The counterpart of ``mpi4jax_tpu/runtime/launch.py`` for the port.  Each
@@ -33,6 +33,17 @@ share this host; on a machine with one card they all use it.
   and the launcher exits 3 with no rank spawned; an analyzer failure exits
   with the analyzer's code.  As ``mpi4jax_tpu/runtime/launch.py:143-185``
   there, with ``-m`` too.
+- ``--plan``: before any rank is spawned, the schedule compiler (``python
+  -m mpi4jax_tpu_torch.analyze ... --emit-plan``) compiles and proves the
+  program's execution plan in the same environment, and every rank runs
+  with ``MPI4JAX_TPU_PLAN`` naming it (``runtime/planrt.py``).  A plan
+  that is not proved, or changes nothing, runs the job without one, with
+  a notice; with ``--verify`` the same analyzer run also enforces the
+  verdict.  As ``:188-348, 487-495`` there.  ``--plan --elastic`` (the
+  plan bundle of a shrinking world) comes with the elastic slice of the
+  port, and the launcher refuses it.
+- ``--live``: every rank arms live re-tuning (``MPI4JAX_TPU_LIVE=auto``,
+  ``live/``).
 """
 
 from __future__ import annotations
@@ -84,7 +95,8 @@ def _terminate_group(procs):
 
 
 def rank_env(rank: int, size: int, base_port: int, jobid: str,
-             fake_hosts=None, trace=None, hosts=None) -> dict:
+             fake_hosts=None, trace=None, hosts=None, plan=None,
+             live=False) -> dict:
     """The environment of one rank."""
     env = dict(os.environ)
     env["MPI4JAX_TPU_RANK"] = str(rank)
@@ -97,6 +109,10 @@ def rank_env(rank: int, size: int, base_port: int, jobid: str,
         env["MPI4JAX_TPU_HOSTS"] = hosts
     if trace:
         env["MPI4JAX_TPU_TRACE"] = trace
+    if plan:
+        env["MPI4JAX_TPU_PLAN"] = plan
+    if live:
+        env["MPI4JAX_TPU_LIVE"] = "auto"
     return env
 
 
@@ -151,6 +167,96 @@ def _preflight_verify(prog: str, np_: int, prog_args=(), module=False,
     sys.stderr.write(res.stderr[-2000:])
     sys.stderr.flush()
     return res.returncode or 2
+
+
+def _emit_plan_at(prog: str, np_: int, prog_args, plan_path: str,
+                  module=False, fake_hosts=None, hosts=None):
+    """One ``analyze --emit-plan`` run at world size ``np_``; returns the
+    CompletedProcess (the caller reads its exit code)."""
+    env = dict(os.environ)
+    if fake_hosts:
+        env["MPI4JAX_TPU_FAKE_HOSTS"] = fake_hosts
+    if hosts:
+        env["MPI4JAX_TPU_HOSTS"] = hosts
+    repo = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env.setdefault("PYTHONPATH", repo)
+    return subprocess.run(
+        [sys.executable, "-m", "mpi4jax_tpu_torch.analyze",
+         *(["-m"] if module else []), prog, "--np", str(np_),
+         "--errors-only", "--emit-plan", plan_path, "--", *prog_args],
+        capture_output=True, text=True, env=env,
+    )
+
+
+def _preflight_plan(prog: str, np_: int, prog_args=(), module=False,
+                    fake_hosts=None, hosts=None,
+                    enforce_verify: bool = False):
+    """Compile and prove ``prog``'s execution plan before any rank is
+    spawned.  Returns ``(rc, plan_path)``: a nonzero ``rc`` stops the
+    launch (only with ``enforce_verify``, which folds ``--verify`` into
+    this one analyzer run); an empty ``plan_path`` means the job runs
+    without a plan: the compiler failed, or the plan is not proved or
+    changes nothing (a plan that rewrites nothing would cost every op its
+    bookkeeping for no overlap)."""
+    import json
+    import tempfile
+
+    fd, plan_path = tempfile.mkstemp(prefix="m4j_plan_", suffix=".json")
+    os.close(fd)
+    res = _emit_plan_at(prog, np_, prog_args, plan_path, module,
+                        fake_hosts, hosts)
+    if res.returncode == 3 and enforce_verify:
+        print(f"[launch] --verify FAILED for {prog} at np={np_} — "
+              "no rank was spawned:", file=sys.stderr)
+        sys.stderr.write(res.stdout)
+        sys.stderr.write(res.stderr)
+        sys.stderr.flush()
+        os.unlink(plan_path)
+        return 3, ""
+    if enforce_verify and res.returncode == 0 and "WARNING" in res.stdout:
+        print(f"[launch] --verify: {prog} has warnings at np={np_} "
+              "(launch proceeds):", file=sys.stderr)
+        sys.stderr.write(res.stdout)
+        sys.stderr.flush()
+    if res.returncode not in (0, 3):
+        os.unlink(plan_path)
+        if enforce_verify:
+            print(f"[launch] --verify could not run the analyzer "
+                  f"(exit {res.returncode}):", file=sys.stderr)
+            sys.stderr.write(res.stderr[-2000:])
+            sys.stderr.flush()
+            return res.returncode or 2, ""
+        print(f"[launch] --plan: schedule compiler could not run "
+              f"(exit {res.returncode}); running without a plan:",
+              file=sys.stderr)
+        sys.stderr.write(res.stderr[-2000:])
+        sys.stderr.flush()
+        return 0, ""
+    try:
+        with open(plan_path) as f:
+            plan = json.load(f)
+        proved = bool(plan.get("proved"))
+        rewritten = bool(plan.get("rewritten"))
+        reasons = plan.get("reasons", [])
+    except Exception as e:
+        print(f"[launch] --plan: cannot read compiled plan: {e}",
+              file=sys.stderr, flush=True)
+        os.unlink(plan_path)
+        return 0, ""
+    if not (proved and rewritten):
+        state = "NOT proved equivalent" if not proved else "unrewritten"
+        print(f"[launch] --plan: plan for {prog} at np={np_} is "
+              f"{state}; running without a plan:"
+              + "".join(f"\n    {r}" for r in reasons),
+              file=sys.stderr, flush=True)
+        os.unlink(plan_path)
+        return 0, ""
+    print(f"[launch] --plan: verified plan "
+          f"{plan.get('cache_key', '?')} for {prog} at np={np_}"
+          + "".join(f"\n    note: {r}" for r in reasons),
+          file=sys.stderr, flush=True)
+    return 0, plan_path
 
 
 def _remove_stale_parts(trace: str) -> None:
@@ -231,6 +337,24 @@ def main(argv=None) -> int:
                          "mpi4jax_tpu_torch.analyze) and exit 3 with the "
                          "findings table when it fails — BEFORE any rank "
                          "is spawned")
+    ap.add_argument("--plan", action="store_true",
+                    help="pre-flight: compile the program's communication "
+                         "schedule into a verified execution plan (python "
+                         "-m mpi4jax_tpu_torch.analyze --emit-plan) and run "
+                         "every rank with MPI4JAX_TPU_PLAN naming it: "
+                         "hoisted receive posts and deferred send "
+                         "completions on the progress engine.  A plan that "
+                         "is not proved runs the job without one, with a "
+                         "notice")
+    ap.add_argument("--live", action="store_true",
+                    help="arm live drift detection and collective "
+                         "re-tuning in every rank (MPI4JAX_TPU_LIVE=auto; "
+                         "thresholds MPI4JAX_TPU_LIVE_WINDOW, _DRIFT_PCT, "
+                         "_COOLDOWN_OPS)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="not in the port yet: recovery from a dead rank, "
+                         "and --plan --elastic's plan bundle, come with its "
+                         "elastic slice")
     ap.add_argument("-m", dest="module", action="store_true",
                     help="PROG is a module, run as each rank's program "
                          "(python -m)")
@@ -240,13 +364,26 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.np < 1:
         ap.error("-n must be at least 1")
+    if args.elastic:
+        ap.error(("--plan --elastic" if args.plan else "--elastic")
+                 + " is not ported yet: elastic recovery and the plan "
+                   "bundle of a shrinking world come with the port's "
+                   "elastic slice (elastic/, bridge.rebuild)")
     if args.hosts:
         nhosts = len(args.hosts.split(","))
         if nhosts != args.np:
             ap.error(f"--hosts lists {nhosts} entries for {args.np} ranks")
     prog_args = args.args[1:] if args.args[:1] == ["--"] else args.args
     command = ["-m"] * args.module + [args.prog, *prog_args]
-    if args.verify:
+    plan_path = ""
+    if args.plan:
+        # one analyzer run serves both gates
+        rc, plan_path = _preflight_plan(
+            args.prog, args.np, prog_args, args.module, args.fake_hosts,
+            args.hosts, enforce_verify=args.verify)
+        if rc != 0:
+            return rc
+    elif args.verify:
         rc = _preflight_verify(args.prog, args.np, prog_args, args.module,
                                args.fake_hosts, args.hosts)
         if rc != 0:
@@ -283,7 +420,8 @@ def main(argv=None) -> int:
             procs.append(subprocess.Popen(
                 [sys.executable, *command],
                 env=rank_env(rank, args.np, base_port, jobid,
-                             args.fake_hosts, trace, args.hosts)))
+                             args.fake_hosts, trace, args.hosts,
+                             plan_path, args.live)))
         in_spawn[0] = False
         if deferred:
             raise deferred[0]
@@ -321,6 +459,11 @@ def main(argv=None) -> int:
     finally:
         if main_thread:
             signal.signal(signal.SIGTERM, old_term)
+    if plan_path:
+        try:
+            os.unlink(plan_path)
+        except OSError:
+            pass
     if trace:
         _merge_trace(trace, args.np)
     if first_fail is not None:

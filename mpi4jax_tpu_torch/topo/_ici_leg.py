@@ -2,10 +2,10 @@
 
 The counterpart of ``mpi4jax_tpu/topo/_ici_leg.py`` (``:201-327``).  On a
 multi-island world, an f32 SUM allreduce forced to ``hring`` or ``htree``
-(or picked so by the engine) runs in three phases, when
-``MPI4JAX_TPU_ICI_LEG`` is ``force``, or ``auto`` with every member of
-every multi-member island backed by a card (tier ``"ici"``,
-``topo/__init__.py``):
+(or picked so by the engine) runs in three phases, when plan execution
+is off (``MPI4JAX_TPU_PLAN``) and ``MPI4JAX_TPU_ICI_LEG`` is ``force``,
+or ``auto`` with every member of every multi-member island backed by a
+card (tier ``"ici"``, ``topo/__init__.py``):
 
 1. intra: the island members' rows are allgathered over the intra-island
    comm and folded by the fused ring, kernel 3
@@ -92,13 +92,17 @@ def _record_leg(algo_name: str, t0: float, dur: float, nbytes: int) -> None:
 
 
 def eligible(t, *, mode: Optional[str] = None) -> bool:
-    """Topology-level eligibility: multi-island, hierarchy not denied and,
-    under ``auto``, every multi-member island wholly on cards.  Plan
-    execution is not ported, so it counts as off."""
+    """Topology-level eligibility: multi-island, hierarchy not denied, plan
+    execution off and, under ``auto``, every multi-member island wholly on
+    cards.  A plan's proof covers the world ops its analyzer saw, and the
+    leg's sub-comm traffic is not among them, so a planned job keeps the
+    native schedules."""
     mode = mode or config.ici_leg_mode()
     if mode == "off" or t is None or not t.multi:
         return False
     if config.hier_mode() == "deny":
+        return False
+    if config.plan_spec() is not None:
         return False
     if mode == "force":
         return True

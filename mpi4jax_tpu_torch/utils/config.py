@@ -36,12 +36,20 @@ typo silently changes routing or numerics.
   0 for none;
 - ``MPI4JAX_TPU_ANALYZE_SYMBOLIC``: auto | off, the verifier's
   rank-symbolic path (``analysis/_symbolic.py`` reads it itself, with this
-  parser's rules).
+  parser's rules);
+- ``MPI4JAX_TPU_PLAN``: a verified plan file or bundle for plan execution
+  (``runtime/planrt.py``, which resolves it once per process; the
+  launcher's ``--plan`` sets it), a bare enable, or off;
+- ``MPI4JAX_TPU_LIVE``: off | auto, live re-tuning (``live/``; the
+  launcher's ``--live`` sets auto), with ``MPI4JAX_TPU_LIVE_WINDOW`` (the
+  controller's window in events, default 256), ``_LIVE_DRIFT_PCT`` (the
+  drift threshold in percent, default 30) and ``_LIVE_COOLDOWN_OPS``
+  (world-collective boundaries between swaps, default 64; the epoch
+  rendezvous runs every quarter of it).
 
 ``knob_env`` stamps the resolved gates into tune caches and benchmark
-records, as the JAX package does.  Plan execution (``MPI4JAX_TPU_PLAN``)
-is not ported: ``plan_spec`` only parses it for that stamp, and the port
-runs as if it were off.
+records, as the JAX package does (the live knobs are not among them there
+either).
 """
 
 from __future__ import annotations
@@ -104,6 +112,65 @@ def plan_bucket_bytes() -> int:
         raise ValueError(
             f"cannot parse MPI4JAX_TPU_PLAN_BUCKET_KB={raw!r} as KB")
     return max(0, v) * 1024
+
+
+def _positive_int_knob(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(f"cannot parse {name}={raw!r} as an integer")
+    if v <= 0:
+        raise ValueError(f"{name}={raw!r} must be a positive integer")
+    return v
+
+
+def live_mode() -> str:
+    """``MPI4JAX_TPU_LIVE`` as "off" | "auto".  Strict: ranks that
+    disagree on the mode would rendezvous on different collective
+    sequences, so a typo raises.  "off" arms nothing: no thread, no
+    boundary hook, no event ring."""
+    raw = os.environ.get("MPI4JAX_TPU_LIVE")
+    if raw is None or not raw.strip():
+        return "off"
+    v = raw.strip()
+    if v in ("off", "auto"):
+        return v
+    raise ValueError(
+        f"cannot parse MPI4JAX_TPU_LIVE={raw!r} (expected off or auto)")
+
+
+def live_window() -> int:
+    """``MPI4JAX_TPU_LIVE_WINDOW``: the controller's rolling window over
+    the native event ring, in events (positive, default 256)."""
+    return _positive_int_knob("MPI4JAX_TPU_LIVE_WINDOW", 256)
+
+
+def live_drift_pct() -> float:
+    """``MPI4JAX_TPU_LIVE_DRIFT_PCT``: how far, in percent, an observed
+    (op, size band, algorithm) median may leave the cost model's
+    prediction before it counts as drift (positive, default 30)."""
+    raw = os.environ.get("MPI4JAX_TPU_LIVE_DRIFT_PCT")
+    if raw is None or not raw.strip():
+        return 30.0
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"cannot parse MPI4JAX_TPU_LIVE_DRIFT_PCT={raw!r} as percent")
+    if v <= 0:
+        raise ValueError(
+            f"MPI4JAX_TPU_LIVE_DRIFT_PCT={raw!r} must be > 0")
+    return v
+
+
+def live_cooldown_ops() -> int:
+    """``MPI4JAX_TPU_LIVE_COOLDOWN_OPS``: world-collective boundaries
+    between table swaps (positive, default 64); the epoch rendezvous runs
+    every ``cooldown // 4`` boundaries (at least every one)."""
+    return _positive_int_knob("MPI4JAX_TPU_LIVE_COOLDOWN_OPS", 64)
 
 
 def _float_knob(name: str, default: float) -> float:
@@ -181,7 +248,8 @@ def uring_mode() -> str:
 
 def plan_spec() -> Optional[str]:
     """``MPI4JAX_TPU_PLAN``: a plan-file path or enable flag, or None when
-    off.  Plan execution is not ported; this feeds ``knob_env`` only."""
+    off (read afresh; ``runtime.planrt.plan_spec`` caches it for the
+    ops' path and the bridge's install gate)."""
     raw = os.environ.get("MPI4JAX_TPU_PLAN", "").strip()
     if not raw or raw.lower() in ("0", "false", "off", "no"):
         return None

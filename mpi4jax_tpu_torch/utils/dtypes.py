@@ -41,6 +41,15 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def from_name(name: str) -> torch.dtype:
+    """``"float32"`` -> ``torch.float32``; ``TypeError`` outside the
+    table."""
+    try:
+        return _TABLE[name][0]
+    except KeyError:
+        raise TypeError(f"the transport does not carry {name}") from None
+
+
 def check_supported(dtype: torch.dtype) -> None:
     """Raise ``TypeError`` for a dtype outside the table."""
     wire_code(dtype)
