@@ -283,12 +283,38 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``simulate_hring_sum`` on every rank, kernel 3 launched 0 times before
    the commit and once per rank per call after it; (p2) the same job
    without ``--live``: epoch 0, no swap, no boundary hook, every call
-   ``ring``; ms per call before the proposal, in (p2) and after the swap.
+   ``ring``; ms per call before the proposal, in (p2) and after the swap;
+35. path (q), elastic worlds (``elastic/``, ``bridge.rebuild``, ``launch
+   --elastic``), every job's ranks on ``cuda:0``, the shm arena off: (q1)
+   ``tests/torch_world_programs/elastic_train.py`` at np 3, 12 steps, a
+   commit every 2, uninterrupted and with slot 1 killed by the native fault
+   injector under ``shrink`` and under ``respawn``: every finishing rank's
+   digest the clean run's, bit for bit, each survivor resumed from a step
+   strictly inside the job; (q3) ``launch --plan --elastic`` of
+   ``elastic_plan_bundle.py`` at np 3, clean and with slot 1 killed: the
+   bundle covers np 3 and 2, the recovery re-proves the np=2 plan on both
+   survivors, which end with ``plan_active=1 mismatches=0`` and the clean
+   digest; (q2) ``gpt_dp_elastic.py`` at GPT-2's widths cut to 2 of its 12
+   layers (vocab 50304, d_model 768, 12 heads of 64, d_ff 3072, T 1024, bf16
+   compute, about 54 M parameters), SGD through ``dp.elastic_step_fn``, a
+   global batch of 12 made from a seed per step, 8 steps, a commit every 2,
+   at np 4 on ``r0,r1|r2,r3`` with every gradient allreduce on ``hring``
+   and the leg forced; clean (beside (q1) and (q3)), then alone with slot 1
+   killed at the start of step 5 and the job finished on np 3 on the
+   islands ``{0,1}|{2}``, step 4 replayed: the final full-batch loss within
+   1e-2 relative of the clean run's and the final parameters within 2e-2
+   of the clean run's (relative to how far training moved them, at most a
+   third of the least step's update), each generation's first step held to the
+   plain route (the synced gradient within ``gpt_step.ROUTE_TOL``, kernel
+   3's island sums bit for bit its plain version), kernels 5, 6 and 7
+   launched by every rank in every step before and after the recovery,
+   kernel 3 by the rebuilt island's ranks; the step times and the time
+   from the death to the first step of the new generation.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the run fails and prints
 no result.  ``--rehearse`` runs phases 2-4, 7-10, 12, 13, 15-17, 19-21,
-23-34 on the CPU through the plain versions at a small size and prints
+23-35 on the CPU through the plain versions at a small size and prints
 no result line.
 """
 
@@ -418,6 +444,22 @@ M_SMALL_GPT = gpt.GPTConfig(vocab=256, d_model=32, n_heads=4, n_layers=2,
 O_SMALL = ["--device", "cpu", "--rounds", "4", "--block-kb", "512"]
 # phase 34, path (p): path (g)'s 16 MiB a rank on the card
 P_SMALL_MIB = 1
+# phase 35, path (q): the native fault points (sends of slot 1, the shm
+# arena off) that land after the first commit and before the last step of
+# (q1)'s 12 steps and (q3)'s 10; (q1)'s lands late enough (resumed from
+# step 8) that the respawned slot finishes without dying again
+Q1_FAULT = "rank=1,point=send,after=30,action=exit"
+Q3_FAULT = "rank=1,point=send,after=30,action=exit"
+# at step 5, after the commit of step 4: step 4 is replayed on np 3
+Q2_KILL = "1:5"
+Q2_LOSS_BOUND = 1e-2  # tests/world/test_elastic.py's LOSS_REL_BOUND
+# the recovered run's final parameters against the clean run's, the L2 of
+# the difference over the L2 of the clean run's movement from the initial
+# parameters: about ten times the reassociation noise of bf16 compute
+# (2.4e-3 at the small width on the CPU, np 4 shrinking to 3); the least
+# step's update over that movement (what a lost or repeated step adds)
+# must exceed it 3 times
+Q2_PARAM_BOUND = 2e-2
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2777,6 +2819,349 @@ def path_p(dev, on_card, card):
     return out
 
 
+def _q_job(tmp, name, np_, prog, args, env, flags=()):
+    """One ``launch --elastic`` job of path (q), started; its checkpoints
+    under ``tmp``."""
+    env = dict(env, MPI4JAX_TPU_CKPT_DIR=os.path.join(tmp, f"ck_{name}"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "mpi4jax_tpu_torch.runtime.launch", "-n",
+         str(np_), "--timeout", "400", "--elastic", *flags,
+         os.path.join(REPO, "tests", "torch_world_programs", prog), *args],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _q_wait(what, proc):
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"path ({what}) exited {proc.returncode}:\n{stdout[-3000:]}\n"
+             f"{stderr[-3000:]}")
+    return stdout, stderr
+
+
+def _q_resumed(what, stderr, last):
+    """The steps the survivors resumed from, each strictly inside the job,
+    and the launcher's "completed after recovery"."""
+    import re
+
+    steps = [int(k) for k in re.findall(r"resuming from step (\d+)",
+                                        stderr)]
+    if not steps or not all(0 < k < last for k in steps) \
+            or "completed after recovery" not in stderr:
+        fail(f"path ({what}): resumed from {steps} of {last} steps:\n"
+             f"{stderr[-3000:]}")
+    return steps
+
+
+def _q_lines(stdout, marker):
+    import re
+
+    return [json.loads(m) for m in re.findall(marker + r" (\{.*\})",
+                                              stdout)]
+
+
+def path_q(on_card, card):
+    """Phase 35: path (q), elastic worlds on the card, every job under
+    ``launch --elastic`` with the shm arena off and its ranks on the card.
+
+    (q1) ``elastic_train.py`` at np 3, 12 steps, a commit every 2, on CUDA
+    tensors: uninterrupted, and with slot 1 killed by ``Q1_FAULT`` under
+    ``shrink`` and under ``respawn``: every finishing rank's digest equal
+    to the clean run's, bit for bit, the post-mortem's "completed after
+    recovery", each survivor resumed from a step k with 0 < k < 12.  (q3)
+    ``launch --plan --elastic`` of ``elastic_plan_bundle.py`` at np 3, clean
+    and with ``Q3_FAULT``: the launcher's bundle covers np 3 and 2, the
+    recovery prints "re-proved plan" for np=2 on both survivors, both end
+    with "plan_active=1 mismatches=0" and the clean run's digest.  (q1) and
+    (q3) run side by side, and beside them (q2)'s clean run.  (q2)
+    ``gpt_dp_elastic.py --gpt2 --layers 2`` (GPT-2's widths at 2 of 12
+    layers, bf16 compute, SGD through ``dp.elastic_step_fn``, a global
+    batch of 12 sequences of 1024 from a seed per step, 8 steps, a commit
+    every 2) at np 4 on ``r0,r1|r2,r3`` with the leg forced and every
+    gradient allreduce on ``hring``; clean, then alone with slot 1 killed
+    at the start of step 5 (``Q2_KILL``), shrinking to np 3 on the islands
+    ``{0,1}|{2}`` and replaying step 4: the final full-batch loss within
+    ``Q2_LOSS_BOUND`` relative of the clean run's, and the final
+    parameters within ``Q2_PARAM_BOUND`` of the clean run's (relative to
+    how far training moved them, a bound at least 3 times below the least
+    step's update); the killed run's ``--route-check`` in each generation (every
+    rank's synced gradient on the kernel route against the plain route's
+    within ``gpt_step.ROUTE_TOL``, kernel 3's island sums bit for bit its
+    plain version on the same gradients); on the card kernels 5, 6 and 7
+    launched by every rank in every step and every route check before and
+    after the recovery, kernel 3 by every rank of a two-member island (the
+    rebuilt ``{0,1}`` after the recovery, none on rank 2); the step times
+    before and after the recovery, and the time from the death to the
+    first step of the new generation.  On the CPU (``--rehearse``) (q2)
+    runs at the JAX program's small width."""
+    if on_card:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev_args = ["--device", "cuda" if on_card else "cpu"]
+    env = dict(os.environ, MPI4JAX_TPU_DISABLE_SHM="1",
+               MPI4JAX_TPU_TIMEOUT_S="30" if on_card else "10",
+               MPI4JAX_TPU_ELASTIC_GRACE_S="60")
+    for knob in ("MPI4JAX_TPU_FAULT", "MPI4JAX_TPU_PLAN",
+                 "MPI4JAX_TPU_COLL_ALGO", "MPI4JAX_TPU_ICI_LEG"):
+        env.pop(knob, None)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="path_q_") as tmp:
+        t0 = time.perf_counter()
+        side = {
+            "q1 clean": _q_job(tmp, "q1c", 3, "elastic_train.py",
+                               ["12", *dev_args], env),
+            "q1 shrink": _q_job(tmp, "q1s", 3, "elastic_train.py",
+                                ["12", *dev_args],
+                                dict(env, MPI4JAX_TPU_FAULT=Q1_FAULT)),
+            "q1 respawn": _q_job(tmp, "q1r", 3, "elastic_train.py",
+                                 ["12", *dev_args],
+                                 dict(env, MPI4JAX_TPU_FAULT=Q1_FAULT),
+                                 ("--elastic-policy", "respawn")),
+            "q3 clean": _q_job(tmp, "q3c", 3, "elastic_plan_bundle.py",
+                               ["10", *dev_args], env, ("--plan",)),
+            "q3 shrink": _q_job(tmp, "q3s", 3, "elastic_plan_bundle.py",
+                                ["10", *dev_args],
+                                dict(env, MPI4JAX_TPU_FAULT=Q3_FAULT),
+                                ("--plan",)),
+            "q2) clean": _q2_job(tmp, "clean", env, dev_args, on_card),
+        }
+        done = {what: _q_wait(what, proc) for what, proc in side.items()}
+        secs = time.perf_counter() - t0
+        d_clean = _digests(done["q1 clean"][0], "elastic_train digest")
+        want = {r.split()[1] for r in d_clean}
+        if len(d_clean) != 3 or len(want) != 1:
+            fail(f"path (q1): clean digests {d_clean}")
+        resumed = {}
+        for policy, n in (("shrink", 2), ("respawn", 3)):
+            stdout, stderr = done[f"q1 {policy}"]
+            got = _digests(stdout, "elastic_train digest")
+            if len(got) != n or {r.split()[1] for r in got} != want:
+                fail(f"path (q1) {policy}: digests {got}, clean {want}")
+            resumed[policy] = _q_resumed(f"q1) {policy}", stderr, 12)
+        launches = {(d["rank"], d["size"], d["generation"]):
+                    sum(d["launches"].values()) for d in _q_lines(
+                        done["q1 shrink"][0], "elastic_train launches")}
+        log(f"  (q1) elastic_train.py at np 3 on {dev_args[1]}, 12 steps: "
+            f"shrink to np 2 resumed from step(s) {resumed['shrink']}, "
+            f"respawn from {resumed['respawn']}; every finishing rank's "
+            f"digest the clean run's {next(iter(want))[:16]}..., bit for "
+            f"bit; kernel launches by (rank, size, generation) of the "
+            f"shrunk world {launches}")
+        stdout, stderr = done["q3 shrink"]
+        clean3 = done["q3 clean"][0]
+        d3 = {r.split()[1] for r in _digests(
+            clean3, "elastic_plan_bundle digest")}
+        if "plan bundle covers np=[2, 3]" not in stderr \
+                or stderr.count("re-proved plan") != 2 \
+                or "for the recovered np=2 world" not in stderr \
+                or "plan execution disabled" in stderr \
+                or clean3.count("np=3 plan_active=1 mismatches=0") != 3 \
+                or stdout.count("np=2 plan_active=1 mismatches=0") != 2 \
+                or {r.split()[1] for r in _digests(
+                    stdout, "elastic_plan_bundle digest")} != d3 \
+                or len(d3) != 1:
+            fail(f"path (q3): the plan across the recovery:\n"
+                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        log(f"  (q3) launch --plan --elastic of elastic_plan_bundle.py at "
+            f"np 3: the bundle covers np 3 and 2, the recovery re-proved "
+            f"the np=2 plan on both survivors, plan_active=1 mismatches=0, "
+            f"the clean run's digest; (q1), (q3) and (q2)'s clean run side "
+            f"by side {secs:.1f} s")
+        out["q1_q3_seconds"] = secs
+        out["q2"] = _path_q2(tmp, env, dev_args, on_card, card,
+                             done["q2) clean"], secs)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 35: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def _q2_job(tmp, name, env, dev_args, on_card):
+    """One (q2) job, started: ``clean``, or ``kill`` (slot 1 killed at
+    ``Q2_KILL``, the route checked in each generation); rank 0 writes the
+    final parameters to ``<tmp>/q2<name>.npz``."""
+    width = ["--gpt2", "--layers", "2"] if on_card else ["--batch", "12"]
+    env = dict(env, MPI4JAX_TPU_ICI_LEG="force",
+               MPI4JAX_TPU_COLL_ALGO="allreduce=hring")
+    extra = ["--kill", Q2_KILL, "--route-check"] if name == "kill" else []
+    return _q_job(tmp, f"q2{name}", 4, "gpt_dp_elastic.py",
+                  [*dev_args, *width, "--steps", "8", "--out",
+                   os.path.join(tmp, f"q2{name}.npz"), *extra], env,
+                  ("--fake-hosts", ici_leg.FAKE_HOSTS))
+
+
+def _q2_params_rel(tmp, movement):
+    """The L2 of the recovered run's final parameters less the clean run's,
+    over every field in f64, over the clean run's movement."""
+    clean, kill = (np.load(os.path.join(tmp, f"q2{n}.npz"))
+                   for n in ("clean", "kill"))
+    diff = sum(float(np.square(kill[f].astype(np.float64) - clean[f]).sum())
+               for f in clean.files) ** 0.5
+    return diff / movement
+
+
+def _path_q2(tmp, env, dev_args, on_card, card, clean_out, clean_secs):
+    """Path (q2): the elastic DP GPT; the clean np 4 run has ended
+    (``clean_out``), the run with slot 1 killed runs now, alone."""
+    import re
+
+    t0 = time.perf_counter()
+    kill_out = _q_wait("q2) kill", _q2_job(tmp, "kill", env, dev_args,
+                                            on_card))
+    runs = {}
+    for name, (stdout, stderr), secs in (
+            ("clean", clean_out, clean_secs),
+            ("kill", kill_out, time.perf_counter() - t0)):
+        nums = dict(re.findall(
+            r"gpt_dp_elastic (initial_loss|final_loss|movement) (\S+)",
+            stdout))
+        if len(nums) != 3:
+            fail(f"path (q2) {name}: no final loss:\n{stdout[-2000:]}")
+        runs[name] = {"loss": float(nums["final_loss"]),
+                      "loss0": float(nums["initial_loss"]),
+                      "movement": float(nums["movement"]),
+                      "steps": _q_lines(stdout, "gpt_dp_elastic step"),
+                      "routes": _q_lines(stdout, "gpt_dp_elastic route"),
+                      "fails": _q_lines(stdout, "gpt_dp_elastic fail"),
+                      "kills": _q_lines(stdout, "gpt_dp_elastic kill"),
+                      "recovers": _q_lines(stdout, "gpt_dp_elastic recover"),
+                      "seconds": secs, "stderr": stderr}
+    clean, kill = runs["clean"], runs["kill"]
+    resumed = _q_resumed("q2", kill["stderr"], 8)
+    rel = abs(kill["loss"] - clean["loss"]) / abs(clean["loss"])
+    if not rel <= Q2_LOSS_BOUND:
+        fail(f"path (q2): final loss {kill['loss']!r} after the recovery, "
+             f"{clean['loss']!r} clean: {rel:.3e} relative")
+    # the parameters: a recovery that lost, repeated or part-trained a
+    # step moves them by a step's update, far past the bound
+    params_rel = _q2_params_rel(tmp, clean["movement"])
+    least_update = min(s["update_l2"] for s in clean["steps"]) \
+        / clean["movement"]
+    if not (params_rel <= Q2_PARAM_BOUND
+            and least_update > 3 * Q2_PARAM_BOUND
+            and clean["loss0"] > clean["loss"]):
+        fail(f"path (q2): final parameters {params_rel:.3e} of the clean "
+             f"run's movement {clean['movement']!r} from the clean run's "
+             f"(bound {Q2_PARAM_BOUND:g}); the least step's update "
+             f"{least_update:.3e} of it; loss {clean['loss0']!r} at the "
+             f"initial parameters, {clean['loss']!r} after training")
+    before = [s for s in kill["steps"] if s["generation"] == 0]
+    after = [s for s in kill["steps"] if s["generation"] == 1]
+    if {(s["rank"], s["size"]) for s in after} != {(0, 3), (1, 3), (2, 3)} \
+            or any(s["islands"] != [[0, 1], [2]] for s in after) \
+            or len(kill["kills"]) != 1 \
+            or min(resumed) not in {s["step"] for s in before}:
+        fail("path (q2): the new world " + str(
+            [(s["rank"], s["size"], s["islands"], s["step"])
+             for s in after]) + f", resumed from {resumed}, no replay")
+    flash_k = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    routes = {(r["generation"], r["rank"]): r for r in kill["routes"]}
+    tol = gpt_bench.ROUTE_TOL["bfloat16" if on_card else "float32"]
+    if sorted(routes) != [(0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (1, 1),
+                          (1, 2)] \
+            or not all(r["sync_bits"] and r["loss_rel"] <= tol["loss"]
+                       and r["grad_rel"] <= tol["grad"]
+                       for r in routes.values()):
+        fail(f"path (q2): the kernel route against the plain route "
+             f"{kill['routes']} (tolerance {tol})")
+    if on_card:
+        for what, steps in (("clean", clean["steps"]), ("before", before),
+                            ("after", after),
+                            ("route check", kill["routes"])):
+            if any(s["launches"][k] <= 0 for s in steps for k in flash_k):
+                fail(f"path (q2) {what}: a step without kernels 5-7")
+        if any(s["launches"]["fused_ring"] <= 0 for s in clean["steps"]) \
+                or any(routes[0, r]["launches"]["fused_ring"] <= 0
+                       for r in range(4)):
+            fail("path (q2): a clean step or a route check without kernel "
+                 "3 on the leg")
+        island = [s["launches"]["fused_ring"] for s in after
+                  if s["rank"] in (0, 1)] + [
+            routes[1, r]["launches"]["fused_ring"] for r in (0, 1)]
+        if not island or min(island) <= 0 \
+                or routes[1, 2]["launches"]["fused_ring"] != 0:
+            fail(f"path (q2): kernel 3 on the rebuilt island {island}")
+    t_death = kill["kills"][0]["t"]
+    first_new = min(s["step"] for s in after)
+    # the step's entry, before its route check
+    t_resume = max(s["t_in"] for s in after if s["step"] == first_new)
+    t_detect = min(f["t"] for f in kill["fails"]) if kill["fails"] else None
+    recs = kill["recovers"]
+    if len(recs) != 3:
+        fail(f"path (q2): recoveries {recs}")
+    # the recovery's split, the slowest survivor's end of each part
+    split = {
+        "announce_s": max(r["rebuild0"] for r in recs) - t_death,
+        "rebuild_s": max(r["rebuild1"] - r["rebuild0"] for r in recs),
+        "restore_s": t_resume - max(r["recover1"] for r in recs),
+    }
+
+    def step_ms(steps):
+        by_step = {}
+        for s in steps:
+            by_step[s["step"]] = max(by_step.get(s["step"], 0.0),
+                                     (s["t1"] - s["t0"]) * 1e3)
+        return [by_step[k] for k in sorted(by_step)]
+
+    def total(steps, k):
+        return sum(s["launches"][k] for s in steps)
+
+    res = {
+        "loss_clean": clean["loss"], "loss_recovered": kill["loss"],
+        "loss_initial": clean["loss0"], "loss_rel_diff": rel,
+        "params_rel": params_rel, "least_update_rel": least_update,
+        "movement": clean["movement"], "resumed": resumed,
+        "route_checks": {f"{g}/{r}": {k: c[k] for k in (
+            "loss_rel", "grad_rel", "sync_bits", "launches")}
+            for (g, r), c in sorted(routes.items())},
+        "step_ms_clean": step_ms(clean["steps"]),
+        "step_ms_before": step_ms(before), "step_ms_after": step_ms(after),
+        "recovery_s": t_resume - t_death,
+        "detect_s": None if t_detect is None else t_detect - t_death,
+        "recovery_split": split,
+        "launches_clean": {k: total(clean["steps"], k)
+                           for k in ("fused_ring", *flash_k)},
+        "launches_before": {k: total(before, k)
+                            for k in ("fused_ring", *flash_k)},
+        "launches_after": {k: total(after, k)
+                           for k in ("fused_ring", *flash_k)},
+        "launches_after_by_rank": {
+            s: {k: sum(x["launches"][k] for x in after if x["rank"] == s)
+                for k in ("fused_ring", *flash_k)} for s in (0, 1, 2)},
+        "seconds": {k: r["seconds"] for k, r in runs.items()},
+    }
+    at = ("GPT-2 widths, 2 of 12 layers, bf16" if on_card
+          else "the small width")
+    log(f"  (q2) GPT at {at}, "
+        f"np 4 on {ici_leg.FAKE_HOSTS} with every gradient allreduce on the "
+        f"leg; slot 1 killed at step {Q2_KILL.split(':')[1]}, resumed from "
+        f"step(s) {resumed} on np 3, islands [[0, 1], [2]]; final loss "
+        f"{kill['loss']!r} against {clean['loss']!r} clean, {rel:.3e} "
+        f"relative (bound {Q2_LOSS_BOUND:g}), {clean['loss0']!r} at the "
+        f"initial parameters; final parameters {params_rel:.3e} of the "
+        f"clean run's movement {clean['movement']!r} from the clean run's "
+        f"(bound {Q2_PARAM_BOUND:g}; the least step's update "
+        f"{least_update:.3e} of it) [{card}]")
+    log("    route checks (generation/rank: loss, synced gradient relative "
+        "L2, kernel 3 bit for bit its plain version): " + ", ".join(
+            f"{g}/{r} {c['loss_rel']:.2e} {c['grad_rel']:.2e} "
+            f"{c['sync_bits']}" for (g, r), c in sorted(routes.items()))
+        + f" (tolerance {tol})")
+    log(f"    ms per step, the slowest rank: clean {res['step_ms_clean']}, "
+        f"before the death {res['step_ms_before']}, after the recovery "
+        f"{res['step_ms_after']}; death to the first step of generation 1 "
+        f"{res['recovery_s']:.3f} s (to the first survivor's RankFailure "
+        f"{res['detect_s']}); of it, until the slowest survivor began "
+        f"its rebuild (detection, the announcement) "
+        f"{split['announce_s']:.3f} s, the longest rebuild "
+        f"{split['rebuild_s']:.3f} s, the restore and the first step's "
+        f"start {split['restore_s']:.3f} s; seconds {res['seconds']} (the "
+        f"clean run's beside (q1) and (q3))")
+    log(f"    launches: clean {res['launches_clean']}, before the death "
+        f"{res['launches_before']}, after {res['launches_after']} (by new "
+        f"rank {res['launches_after_by_rank']})")
+    return res
+
+
 def path_m(dev, shape, on_card, card):
     """Phase 31: path (m), parts (m1)-(m3)."""
     t0 = time.perf_counter()
@@ -2859,7 +3244,7 @@ def main_path(shape, dev, fuse, reps, on_card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
-                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-34 "
+                    help="phases 2-4, 7-10, 12, 13, 15-17, 19-21 and 23-35 "
                          "on the CPU, plain versions, small size; prints no "
                          "result line")
     args = ap.parse_args(argv)
@@ -3028,6 +3413,11 @@ def main(argv=None):
     log(f"phase 34: path (p), live re-tuning onto the leg on {WORLD_RANKS} "
         f"world ranks on {ici_leg.FAKE_HOSTS} [{card}]")
     p_run = path_p(dev, on_card, card)
+    log(f"phase 35: path (q), elastic worlds: training that loses a rank "
+        f"(shrink, respawn), launch --plan --elastic, and the DP GPT on "
+        f"{WORLD_RANKS} world ranks on {ici_leg.FAKE_HOSTS} shrinking to 3 "
+        f"[{card}]")
+    q_run = path_q(on_card, card)
     log(f"profiler sessions run again (no kernel to time): {len(RERUNS)} "
         f"{RERUNS}")
     if not on_card:
@@ -3204,6 +3594,22 @@ def main(argv=None):
         "sub_jobs": m1["sub_jobs"],
         "checkpoint": m2}
     ring_row["launches_path_p"] = p_run["kernel3_launches"]
+    q2 = q_run["q2"]
+    ring_row["launches_path_q"] = {
+        k: q2[k]["fused_ring"] for k in ("launches_clean", "launches_before",
+                                         "launches_after")}
+    flash_row["launches_path_q"] = {
+        k: q2[k]["flash_fwd"] for k in ("launches_clean", "launches_before",
+                                        "launches_after")}
+    for row in bwd_rows:
+        row["launches_path_q"] = {
+            k: q2[k][row["name"]] for k in (
+                "launches_clean", "launches_before", "launches_after")}
+    ring_row["path_q"] = {k: q2[k] for k in (
+        "loss_clean", "loss_recovered", "loss_rel_diff", "resumed",
+        "step_ms_clean", "step_ms_before", "step_ms_after", "recovery_s",
+        "detect_s", "recovery_split", "launches_after_by_rank")} | {
+        "seconds": q_run["seconds"]}
     ring_row["path_p"] = {k: p_run[k] for k in ("p2_ms", "seconds")} | {
         name: {k: p_run[name][k] for k in (
             "epochs", "swaps", "commit_boundaries", "commit_call", "ms_before",

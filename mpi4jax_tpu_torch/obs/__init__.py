@@ -74,9 +74,12 @@ def stats(event_list=None) -> dict:
 
 
 def dump(base_path: str) -> str:
-    """Write this rank's recording part file (``<base>.rank<r>.json``);
-    returns the path.  Called automatically at interpreter exit when
-    ``MPI4JAX_TPU_TRACE`` is set (see ``runtime/bridge.py``)."""
+    """Write this rank's recording part file (``<base>.rank<r>.json``),
+    stamped with the live elastic generation; returns the path.  Called
+    automatically at interpreter exit when ``MPI4JAX_TPU_TRACE`` is set
+    (see ``runtime/bridge.py``)."""
+    from ..elastic import current_generation
+
     return write_part(
         base_path,
         rank=_recorder.rank(),
@@ -84,6 +87,7 @@ def dump(base_path: str) -> str:
         events=events(),
         dropped=dropped(),
         clock_offset_us=clock_offset_us(),
+        generation=current_generation(),
     )
 
 

@@ -355,7 +355,11 @@ def _coll_algo_detail(comm, opname, nbytes):
     op."""
     try:
         return comm.coll_algo(opname, nbytes)
-    except Exception:
+    except Exception as e:
+        from ..elastic import is_rank_failure
+
+        if is_rank_failure(e):
+            raise
         return "?"
 
 

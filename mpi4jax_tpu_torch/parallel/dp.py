@@ -8,8 +8,10 @@ the sync then adds the ranks' gradients through the allreduce (the hop
 and fused-ring kernels on the card).  A weight shared by the ranks would
 let autograd add them itself and skip the collective.
 
-``dp.elastic_step_fn`` waits for the port's ``elastic/`` (ROADMAP.md §1
-item 7).
+``elastic_step_fn`` builds the step of ``elastic.training.run`` on a world
+comm: a rank's gradient by ``torch.autograd`` on its share of the global
+batch, re-derived from ``(step, rank, size)``, so that a shrunk world
+reshards the same batch.
 """
 
 from __future__ import annotations
@@ -140,3 +142,49 @@ def value_and_synced_grad(loss_fn, *, comm=None):
         return pmean(loss.detach(), comm=comm), synced
 
     return wrapped
+
+
+def elastic_step_fn(loss_fn, *, lr, batch_fn, optimizer=None):
+    """A ``step_fn(params, step, comm)`` for ``elastic.training.run`` from
+    a per-rank loss: SGD (or ``optimizer(params, grads, lr) -> params``)
+    over DP-synced gradients, with the rank's batch re-derived every step
+    from ``batch_fn(step, rank, size)`` (a tuple of arguments, or one).
+
+    ``params`` is a tree of floating tensors; ``loss_fn(params, *batch)``
+    returns this rank's scalar loss on its shard.  Each step differentiates
+    it with ``torch.autograd`` with respect to every leaf and syncs the
+    gradients with ``sync_gradients(comm=...)``; the new parameters are
+    detached tensors.  The rank and size indirection is the elastic wiring:
+    after a recovery shrinks the world, the same function reshards the
+    global batch over the new ranks, so with a global batch that every
+    surviving size divides, the synced gradient stays the global mean and
+    the resumed trajectory matches an uninterrupted run up to float
+    reassociation (the JAX package's ``parallel/dp.py:120-150``).
+    """
+
+    def sgd(params, grads, lr_):
+        return _tree.tree_map(lambda p, g: p - lr_ * g, params, grads)
+
+    opt = optimizer or sgd
+
+    def step_fn(params, step, comm):
+        comm_ = _resolve(comm)
+        batch = batch_fn(step, int(comm_.rank()), int(comm_.size()))
+        if not isinstance(batch, tuple):
+            batch = (batch,)
+        leaves, treedef = _tree.flatten(params)
+        if not all(p.is_floating_point() for p in leaves):
+            raise TypeError("elastic_step_fn differentiates every leaf of "
+                            "params; they must be floating tensors")
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss = loss_fn(_tree.unflatten(treedef, live), *batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        grads = sync_gradients(_tree.unflatten(treedef, grads), comm=comm_)
+        with torch.no_grad():
+            new = opt(_tree.unflatten(
+                treedef, [p.detach() for p in live]), grads, lr)
+        return _tree.tree_map(lambda p: p.detach(), new)
+
+    return step_fn

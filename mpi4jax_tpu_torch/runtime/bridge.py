@@ -58,7 +58,15 @@ file lock guards the build.
 
 Fail-fast, as in the JAX package: a native call that fails prints
 ``tpucomm_<Op> returned error code N`` with the transport's reason,
-poisons the peers' sockets and exits the process with code 1.
+poisons the peers' sockets and exits the process with code 1.  Under
+``MPI4JAX_TPU_ELASTIC`` (``launch --elastic``) it raises
+``elastic.RankFailure`` instead, after the same poisoning, so every
+survivor reaches its recovery point; no setup step of a comm softens that
+failure.  ``rebuild`` is recovery's native step (``bridge.py:754-806``
+there): it tears down the dead world's topology sub-comms and live
+controller, bootstraps the survivors through ``tpucomm_shrink``, reruns
+the per-world setup that ``comm_init`` runs (``_post_init_setup``) and
+re-proves the plan for the new size (``planrt.reinstall_after_rebuild``).
 """
 
 from __future__ import annotations
@@ -215,6 +223,10 @@ def get_lib() -> ctypes.CDLL:
         lib.tpucomm_post.argtypes = [i64, ptr]
         lib.tpucomm_wait_ticket.restype = c_int
         lib.tpucomm_wait_ticket.argtypes = [i64, i64]
+    if hasattr(lib, "tpucomm_shrink"):
+        lib.tpucomm_shrink.restype = i64
+        lib.tpucomm_shrink.argtypes = [i64, c_int, c_int, c_int,
+                                       ctypes.c_char_p]
     if hasattr(lib, "tpucomm_commit_coll_tables"):
         lib.tpucomm_stage_coll_table.restype = None
         lib.tpucomm_stage_coll_table.argtypes = [c_int, i64p, i32p, c_int]
@@ -231,10 +243,17 @@ def get_lib() -> ctypes.CDLL:
 def _abort(opname: str, rc: int):
     lib = get_lib()
     text = (lib.tpucomm_last_error() or b"").decode(errors="replace")
-    print(f"tpucomm_{opname} returned error code {rc}"
-          + (f": {text}" if text else ""), file=sys.stderr, flush=True)
+    detail = f": {text}" if text else ""
+    print(f"tpucomm_{opname} returned error code {rc}{detail}",
+          file=sys.stderr, flush=True)
     # poison every peer socket so the group tears down within one deadline
     lib.tpucomm_abort_all()
+    # elastic worlds: the same poisoning now carries every peer to its
+    # recovery point, and this rank to its own (elastic.recover)
+    if config.elastic_enabled():
+        from ..elastic import RankFailure
+
+        raise RankFailure(f"tpucomm_{opname} failed{detail}", op=opname)
     os._exit(1)
 
 
@@ -263,15 +282,10 @@ _topo_subcomms: dict = {}
 def comm_init(rank: int, size: int, coord: str, device=None,
               hosts=None) -> int:
     """Connect this rank's world comm (collective over the world), run
-    topology discovery, install the tune layers (``tune.install``), arm the
-    recorder when asked (``_install_obs``), arm live re-tuning under
-    ``MPI4JAX_TPU_LIVE=auto`` and attach the plan that ``MPI4JAX_TPU_PLAN``
-    names, and return the native handle.
-    ``device`` is where the world's tensors live: the leg runs its kernels
-    there.  ``hosts`` is the per-rank host list (comma-separated; default
-    ``MPI4JAX_TPU_HOSTS``, else every rank on 127.0.0.1)."""
-    from .. import obs, tune
-
+    its per-world setup (``_post_init_setup``) and return the native
+    handle.  ``device`` is where the world's tensors live: the leg runs its
+    kernels there.  ``hosts`` is the per-rank host list (comma-separated;
+    default ``MPI4JAX_TPU_HOSTS``, else every rank on 127.0.0.1)."""
     lib = get_lib()
     _, _, port = coord.partition(":")
     if hosts is None:
@@ -279,6 +293,34 @@ def comm_init(rank: int, size: int, coord: str, device=None,
     handle = lib.tpucomm_init(rank, size, int(port or 49817), hosts.encode())
     if handle == 0:
         _abort("init", 1)
+    try:
+        _post_init_setup(lib, handle, rank, size, device, install_plan=True)
+    except BaseException:
+        _close_failed(handle)
+        raise
+    return handle
+
+
+def _close_failed(handle) -> None:
+    """Close a comm whose setup failed (a rank failure in elastic mode, a
+    malformed knob): nothing keeps a handle that no comm holds."""
+    _live_disarm(handle)
+    _teardown_topology(handle)
+    get_lib().tpucomm_finalize(handle)
+
+
+def _post_init_setup(lib, handle, rank: int, size: int, device, *,
+                     install_plan: bool) -> None:
+    """The layers every fresh world gets, shared by ``comm_init`` and
+    ``rebuild`` (``bridge.py:516-560`` there): topology discovery, the tune
+    layers (``tune.install``), the recorder when asked (``_install_obs``),
+    live re-tuning under ``MPI4JAX_TPU_LIVE=auto`` and, with
+    ``install_plan``, the plan that ``MPI4JAX_TPU_PLAN`` names (a rebuilt
+    world re-proves its plan in ``rebuild`` instead).  Collective.  A
+    failure of a soft layer warns; a malformed knob and a rank failure
+    propagate."""
+    from .. import obs, tune
+
     topology = None
     if size > 1 and config.topo_mode() != "off":
         topology = _install_topology(lib, handle, rank, size, device)
@@ -298,6 +340,10 @@ def comm_init(rank: int, size: int, coord: str, device=None,
         except ValueError:
             raise
         except Exception as e:  # a live-plane fault must not end the job
+            from ..elastic import is_rank_failure
+
+            if is_rank_failure(e):
+                raise
             import warnings
 
             warnings.warn(f"live re-tuning arm failed: {e}")
@@ -306,16 +352,19 @@ def comm_init(rank: int, size: int, coord: str, device=None,
     # ops as they come
     from . import planrt
 
-    if planrt.plan_spec() is not None:
+    if install_plan and planrt.plan_spec() is not None:
         try:
             planrt.maybe_install_from_env(
                 handle, rank, size,
                 pin_memory=getattr(device, "type", None) == "cuda")
         except Exception as e:
+            from ..elastic import is_rank_failure
+
+            if is_rank_failure(e):
+                raise
             import warnings
 
             warnings.warn(f"schedule-plan install failed: {e}")
-    return handle
 
 
 _obs_dump_registered = False
@@ -371,6 +420,12 @@ def _install_topology(lib, handle, rank: int, size: int, device):
     try:
         t = topo.discover(handle, rank, size, device)
     except RuntimeError as e:
+        # a peer dying mid-handshake is the elastic failure it is; only a
+        # discovery-layer problem leaves the comm flat
+        from ..elastic import is_rank_failure
+
+        if is_rank_failure(e):
+            raise
         import warnings
 
         warnings.warn(f"topology discovery failed; transport stays flat: "
@@ -464,17 +519,87 @@ def coll_epoch():
     return int(lib.tpucomm_coll_epoch())
 
 
-def comm_finalize(handle) -> None:
-    """Close a comm: the live hook is disarmed first, then its topology
-    sub-comms go."""
+def _teardown_topology(handle) -> None:
+    """Finalize a world handle's topology sub-comms (they borrow its
+    sockets, so they go first) and forget its registry entries."""
     from .. import topo
 
-    _live_disarm(handle)
     _topo_subcomms.pop(int(handle), None)
     for sub in _topo_handles.pop(int(handle), []):
         get_lib().tpucomm_finalize(sub)
     topo._forget(handle)
+
+
+def comm_finalize(handle) -> None:
+    """Close a comm: the live hook is disarmed first, then its topology
+    sub-comms go."""
+    _live_disarm(handle)
+    _teardown_topology(handle)
     get_lib().tpucomm_finalize(handle)
+
+
+def shrink_available() -> bool:
+    """True when the loaded library carries the recovery bootstrap."""
+    return hasattr(get_lib(), "tpucomm_shrink")
+
+
+def rebuild(old_handle, new_rank: int, new_size: int, base_port: int,
+            hosts: str = "", *, device=None) -> int:
+    """Elastic recovery's native step (``elastic.recover`` calls it): tear
+    the dead world down and bootstrap a fresh one over the survivors at the
+    re-derived ``base_port``; returns the new handle.  Collective over the
+    survivors.
+
+    The dead world's topology sub-comms borrow its sockets, and its live
+    controller must not rendezvous on it, so both go before
+    ``tpucomm_shrink``, which finalizes ``old_handle`` (0 or None when no
+    world was connected) and runs the bootstrap of ``tpucomm_init``.  Then
+    the per-world setup runs on the new world, discovering its topology
+    afresh (a shrink that emptied an island re-derives the map), and last
+    the plan layer drops the dead world's runner and re-proves the plan for
+    the new size (``planrt.reinstall_after_rebuild``).  ``device`` is the
+    world's device, as in ``comm_init``.  If the setup fails (another
+    death), the new world is closed again and the error propagates: the
+    caller's comm keeps the dead handle, which the next rebuild finalizes
+    as a no-op, and no cache holds the new one."""
+    lib = get_lib()
+    if not hasattr(lib, "tpucomm_shrink"):
+        raise RuntimeError(
+            "elastic recovery needs a native library with the "
+            "tpucomm_shrink bootstrap; rebuild the transport")
+    from . import planrt
+
+    if old_handle:
+        _teardown_topology(old_handle)
+        _live_disarm()
+    handle = lib.tpucomm_shrink(int(old_handle or 0), int(new_rank),
+                                int(new_size), int(base_port),
+                                (hosts or "").encode())
+    if handle == 0:
+        _abort("shrink", 1)
+    try:
+        _post_init_setup(lib, handle, new_rank, new_size, device,
+                         install_plan=False)
+    except BaseException:
+        if old_handle:
+            planrt.drop(old_handle)
+        _close_failed(handle)
+        raise
+    # the plan layer last, onto a working world; soft like comm_init's
+    # install, but never for a rank failure
+    try:
+        planrt.reinstall_after_rebuild(
+            old_handle, handle, new_rank, new_size,
+            pin_memory=getattr(device, "type", None) == "cuda")
+    except Exception as e:
+        from ..elastic import is_rank_failure
+
+        if is_rank_failure(e):
+            raise
+        import warnings
+
+        warnings.warn(f"schedule-plan reinstall failed after recovery: {e}")
+    return handle
 
 
 def split(handle, color: int, key: int):
@@ -843,8 +968,8 @@ def post_recv(handle, shape, dtype, source: int, tag: int):
 
 
 def wait_ticket(handle, ticket: int) -> None:
-    """Block until a posted op completes; a failed op exits the process as
-    the blocking entries do."""
+    """Block until a posted op completes; a failed op fails as the blocking
+    entries do (exit, or ``RankFailure`` in elastic mode)."""
     _check("WaitTicket", get_lib().tpucomm_wait_ticket(int(handle),
                                                        int(ticket)))
 

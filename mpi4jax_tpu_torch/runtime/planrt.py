@@ -102,15 +102,26 @@ def get(comm) -> Optional["PlanRunner"]:
     if _active:
         try:
             return _runners.get(comm.handle)
-        except Exception:
+        except Exception as e:
+            _absorb(e)
             return None
     if plan_spec() is None:
         return None
     try:
         handle = comm.handle  # creating the comm installs the runner
-    except Exception:
+    except Exception as e:
+        _absorb(e)
         return None
     return _runners.get(handle)
+
+
+def _absorb(e: Exception) -> None:
+    """``get`` absorbs the analyzer's comm, which has no handle; a rank
+    failure while the comm connects reaches the caller."""
+    from ..elastic import is_rank_failure
+
+    if is_rank_failure(e):
+        raise e
 
 
 def install(handle: int, plan, rank: int, *, pin_memory: bool = False

@@ -15,7 +15,8 @@ intra-island leg of its hierarchical allreduce runs its kernels on that
 device.  ``split`` and ``dup`` make sub-communicators that borrow the
 world's sockets.  ``WorldComm.from_mpi`` adopts an mpi4py communicator
 (``:318-345`` there): mpi4py only bootstraps, the data moves over the
-native transport.
+native transport.  ``WorldComm._rebind`` (``:175-190`` there) moves the
+world comm onto a rebuilt communicator after an elastic recovery.
 """
 
 from __future__ import annotations
@@ -159,6 +160,21 @@ class WorldComm(CommBase):
                                             device=self.device,
                                             hosts=self._hosts)
         return self._handle
+
+    def _rebind(self, rank: int, size: int, coord: str, handle) -> None:
+        """Elastic recovery (``elastic.recover``) rebinds this comm onto the
+        rebuilt native communicator in place, so every held reference
+        keeps working across the shrink, on the same ``device``.  Only the
+        world comm rebinds: a sub-communicator borrowed the dead world's
+        sockets and is split again on the recovered world."""
+        if self._parent is not None:
+            raise RuntimeError("only the world communicator is "
+                               "rebindable; re-split sub-comms on the "
+                               "recovered world")
+        self._rank = int(rank)
+        self._size = int(size)
+        self._coord = coord
+        self._handle = handle
 
     @classmethod
     def from_mpi(cls, mpi_comm, *, device=None) -> "WorldComm":

@@ -20,7 +20,8 @@ card (tier ``"ici"``, ``topo/__init__.py``):
 3. the leader's bytes are broadcast over the island.
 
 On a CUDA device a failed build or launch of kernel 3 or 4 raises: the
-plain versions run only when the comm's device is the CPU.  When the
+plain versions run only when the comm's device is the CPU, or inside
+``_collectives.use_plain()`` (the oracle a kernel run is held to).  When the
 recorder is armed, each call records one ``Allreduce`` span over phase 1
 (the intra leg and the pack) with ``algo=`` the hierarchical schedule and
 ``tier="ici"``, as the JAX leg's ``_record_leg`` (``:238-246`` there):
@@ -56,10 +57,11 @@ def reset_phases() -> None:
 
 def _island_ring_sum(rows: np.ndarray, device) -> torch.Tensor:
     """(m, count) f32 member rows -> the island sum on ``device``: one
-    launch of kernel 3 on a CUDA device, its plain version on the CPU;
-    both are ``simulate_ring_sum``'s association."""
+    launch of kernel 3 on a CUDA device, its plain version on the CPU and
+    inside ``_collectives.use_plain()``; both are ``simulate_ring_sum``'s
+    association."""
     t = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(device)
-    if device.type == "cuda":
+    if _collectives.on_kernel(t):
         return _collectives.fused_ring_kernel(t)[0]
     return _collectives.fused_ring_allreduce_plain(t)[0]
 

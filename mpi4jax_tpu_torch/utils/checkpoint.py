@@ -242,7 +242,7 @@ def _barrier(comm) -> None:
 
 
 def save_sharded(tree: Any, *, step: int, directory: Optional[str] = None,
-                 comm=None, generation: int = 0,
+                 comm=None, generation: Optional[int] = None,
                  replicated: bool = True, keep: Optional[int] = None,
                  _crash_point: Optional[str] = None) -> str:
     """Write one committed checkpoint for ``step``; returns its directory.
@@ -253,11 +253,10 @@ def save_sharded(tree: Any, *, step: int, directory: Optional[str] = None,
     ``manifest.json`` (the commit point) and a second barrier releases the
     others.  ``replicated`` records that every rank's tree is the same (the
     DP pattern), so the checkpoint restores onto another world size.
-    ``generation`` is the world generation stamped into the manifest: 0,
-    as the port's recordings are stamped, unless the caller passes
-    another (the JAX package reads ``MPI4JAX_TPU_GENERATION``, which only
-    its elastic layer sets).  ``keep`` prunes all but the newest ``keep``
-    committed steps after the commit.
+    ``generation`` is the world generation stamped into the manifest
+    (default: the live one, ``elastic.current_generation()``, as the JAX
+    package's).  ``keep`` prunes all but the newest ``keep`` committed
+    steps after the commit.
 
     ``_crash_point`` is a test seam: ``"after_shard"`` dies before the
     manifest exists, ``"mid_commit"`` after its tmp file is written but
@@ -265,6 +264,10 @@ def save_sharded(tree: Any, *, step: int, directory: Optional[str] = None,
     """
     directory = _resolve_dir(directory)
     rank, nshards = _comm_coords(comm)
+    if generation is None:
+        from ..elastic import current_generation
+
+        generation = current_generation()
     d = step_dir(directory, step)
     os.makedirs(d, exist_ok=True)
     _write_npz(_shard_path(d, rank, nshards), tree,

@@ -45,7 +45,21 @@ typo silently changes routing or numerics.
   controller's window in events, default 256), ``_LIVE_DRIFT_PCT`` (the
   drift threshold in percent, default 30) and ``_LIVE_COOLDOWN_OPS``
   (world-collective boundaries between swaps, default 64; the epoch
-  rendezvous runs every quarter of it).
+  rendezvous runs every quarter of it);
+- ``MPI4JAX_TPU_ELASTIC``: a boolean, elastic worlds (``elastic/``): a
+  transport failure raises ``elastic.RankFailure`` after poisoning the
+  peers, instead of exiting the process (the launcher's ``--elastic`` sets
+  it), with ``MPI4JAX_TPU_ELASTIC_DIR`` (the coordination directory where
+  the launcher announces each generation as ``gen_<n>.json``),
+  ``_ELASTIC_POLICY`` (shrink | respawn, default shrink) and
+  ``_ELASTIC_GRACE_S`` (how long ``elastic.recover`` waits for the next
+  announcement, seconds, default 60);
+- ``MPI4JAX_TPU_GENERATION``: the world generation a process was born into
+  (default 0; the elastic launcher exports it to respawned ranks, and
+  ``elastic.recover`` advances it);
+- ``MPI4JAX_TPU_SLOT``: a respawned rank's launcher slot, when it differs
+  from its bootstrap rank (read by ``elastic.my_slot``; the generation maps
+  key on slots, which never renumber).
 
 ``knob_env`` stamps the resolved gates into tune caches and benchmark
 records, as the JAX package does (the live knobs are not among them there
@@ -254,6 +268,47 @@ def plan_spec() -> Optional[str]:
     if not raw or raw.lower() in ("0", "false", "off", "no"):
         return None
     return raw
+
+
+def elastic_enabled() -> bool:
+    """``MPI4JAX_TPU_ELASTIC`` (default False): the bridge's abort raises
+    ``elastic.RankFailure`` instead of exiting the process."""
+    return flag("MPI4JAX_TPU_ELASTIC")
+
+
+def elastic_dir() -> Optional[str]:
+    """``MPI4JAX_TPU_ELASTIC_DIR``: the launcher's coordination directory
+    for generation announcements, or None."""
+    raw = os.environ.get("MPI4JAX_TPU_ELASTIC_DIR")
+    return raw if raw else None
+
+
+def elastic_policy() -> str:
+    """``MPI4JAX_TPU_ELASTIC_POLICY`` as "shrink" | "respawn", strict: a
+    typo must not shrink a job whose operator asked for respawn."""
+    return _choice("MPI4JAX_TPU_ELASTIC_POLICY", "shrink",
+                   ("shrink", "respawn"))
+
+
+def elastic_grace_s() -> float:
+    """``MPI4JAX_TPU_ELASTIC_GRACE_S`` in seconds (default 60; a
+    non-positive value means the default)."""
+    v = _float_knob("MPI4JAX_TPU_ELASTIC_GRACE_S", 60.0)
+    return v if v > 0 else 60.0
+
+
+def generation() -> int:
+    """``MPI4JAX_TPU_GENERATION``: the world generation this process was
+    born into (default 0).  ``elastic.current_generation`` tracks the live
+    one from there."""
+    raw = os.environ.get("MPI4JAX_TPU_GENERATION")
+    if raw is None or not raw.strip():
+        return 0
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(
+            f"cannot parse MPI4JAX_TPU_GENERATION={raw!r} as an integer")
 
 
 def host_address() -> str:
